@@ -1,0 +1,172 @@
+// Top-k weighted value readout for the STCN memory read (sm_90a).
+//
+// Replaces eva_vos_tpu/kernels/memory_readout.py:_scatter_readout_kernel,
+// reached through pallas_fused_readout.  Given the selection's raw scores
+// vals[k, N] (descending) and token ids idx[k, N]:
+//     out[o, n, :] = sum_t w_t * mv[o, idx[t, n], :] / sum_t w_t,
+//     w_t = exp(vals[t, n] - vals[0, n]),
+// accumulated in fp32 and written in mv's dtype.
+//
+// What bounds it: bytes.  Each query reads k value rows of CV elements
+// (50 x 1 KB in bf16 at CV = 512) and does two flops per element read.
+// The TPU kernel streamed the whole bank through VMEM and built a one-hot
+// contribution matrix per block, because a TPU gathers rows badly.  A GPU
+// gathers rows well, so this is a plain weighted gather: the bank is read
+// only where a query selected a token, and neighbouring queries, which
+// select neighbouring tokens, find those rows in L2.
+//
+// Design: one block per (tile of 16 queries, object).  The block stages the
+// tile's weights and ids in shared memory once, then each 64-thread group
+// walks one query at a time: its threads cover CV in 16-byte vectors (8 bf16
+// or 4 fp32), so every selected row is one coalesced 1 KB read in bf16.  The
+// loop over t is unrolled so that several row loads are in flight.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kGroup = 64;                  // threads per query
+constexpr int kGroups = 4;                  // queries in flight per block
+constexpr int kThreads = kGroup * kGroups;  // 256
+constexpr int kQueriesPerBlock = 16;
+
+template <typename T> struct Vec;
+
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* in) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+    }
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+template <> struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ static void load(const float* p, float* out) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  }
+  __device__ static void store(float* p, const float* in) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+readout_kernel(const T* __restrict__ mv, const float* __restrict__ vals,
+               const int* __restrict__ idx, T* __restrict__ out, int n, int m,
+               int cv, int top_k) {
+  extern __shared__ __align__(16) float smem[];
+  float* w = smem;                                          // [16][top_k]
+  int* ids = reinterpret_cast<int*>(w + kQueriesPerBlock * top_k);
+  float* z = reinterpret_cast<float*>(ids + kQueriesPerBlock * top_k);
+
+  const int o = blockIdx.y;
+  const int q0 = blockIdx.x * kQueriesPerBlock;
+  for (int e = threadIdx.x; e < kQueriesPerBlock * top_k; e += kThreads) {
+    const int qq = e / top_k;
+    const int t = e - qq * top_k;
+    const int q = q0 + qq;
+    if (q < n) {
+      w[e] = expf(vals[static_cast<size_t>(t) * n + q] - vals[q]);
+      ids[e] = idx[static_cast<size_t>(t) * n + q];
+    } else {
+      w[e] = 0.f;
+      ids[e] = 0;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kQueriesPerBlock) {
+    float s = 0.f;
+    for (int t = 0; t < top_k; ++t) s += w[threadIdx.x * top_k + t];
+    z[threadIdx.x] = s;
+  }
+  __syncthreads();
+
+  constexpr int kVec = Vec<T>::kN;
+  const int g = threadIdx.x / kGroup;
+  const int lane = threadIdx.x % kGroup;
+  const T* bank = mv + static_cast<size_t>(o) * m * cv;
+  for (int qq = g; qq < kQueriesPerBlock; qq += kGroups) {
+    const int q = q0 + qq;
+    if (q >= n) break;
+    const float* wq = w + qq * top_k;
+    const int* iq = ids + qq * top_k;
+    const float zq = z[qq];
+    for (int c = lane * kVec; c < cv; c += kGroup * kVec) {
+      float acc[kVec];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
+#pragma unroll 5
+      for (int t = 0; t < top_k; ++t) {
+        float v[kVec];
+        Vec<T>::load(bank + static_cast<size_t>(iq[t]) * cv + c, v);
+        const float wt = wq[t];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[i] = fmaf(wt, v[i], acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] /= zq;
+      Vec<T>::store(out + (static_cast<size_t>(o) * n + q) * cv + c, acc);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* mv, const float* vals, const int* idx, void* out,
+           int n_obj, int n, int m, int cv, int top_k, cudaStream_t stream) {
+  const size_t smem =
+      8 * static_cast<size_t>(kQueriesPerBlock) * top_k + 4 * kQueriesPerBlock;
+  cudaError_t err = cudaFuncSetAttribute(
+      readout_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, n_obj);
+  readout_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(mv), vals, idx, static_cast<T*>(out), n, m, cv,
+      top_k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// mv [n_obj, m, cv] row-major, 16-byte aligned, cv a multiple of 8; vals
+// and idx [top_k, n] from memory_topk_launch (every id < m); out
+// [n_obj, n, cv] in mv's dtype.  Returns a cudaError_t code.
+int memory_readout_launch(const void* mv, const void* vals, const void* idx,
+                          void* out, int n_obj, int n, int m, int cv,
+                          int top_k, int is_bf16, void* stream) {
+  if (n <= 0 || n_obj <= 0) return 0;
+  const float* v = static_cast<const float*>(vals);
+  const int* i = static_cast<const int*>(idx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch<__nv_bfloat16>(mv, v, i, out, n_obj, n, m, cv, top_k, s);
+  }
+  return launch<float>(mv, v, i, out, n_obj, n, m, cv, top_k, s);
+}
+
+const char* memory_readout_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}
+
+}  // extern "C"
