@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.config import KernelConfig
 from ..ops.aggregate import aggregate_wbg
 from ..ops.memory_attention import memory_readout, resolve_strategy
 from ..ops.normalize import im_normalize
@@ -64,9 +65,13 @@ class EngineConfig(NamedTuple):
     max_interactions: int = 64
     feature_chunk: int = 4          # frames per encode_key step in precompute
     readout_strategy: str = "auto"  # 'auto': 'fused' (the CUDA kernels) on
-    #   a CUDA device, 'gather' (the plain read) on the CPU; 'scatter' too
+    #   a CUDA device, 'gather' (the plain read) on the CPU; 'select' (the
+    #   split-bank selection kernel + gather) and 'scatter' too
     block_frames: bool = True       # batch the mem_freq frames between
     #                                 memory admissions (same results)
+    kernels: KernelConfig | None = None  # the 'fused' read's kernels; None:
+    #   KernelConfig.from_env() (the EVAVOS_* variables), once, at engine
+    #   construction
 
 
 class InferenceEngine:
@@ -82,8 +87,12 @@ class InferenceEngine:
         self.device = torch.device(device)
         self.stcn = stcn.to(self.device).eval()
         self.fusion = None if fusion is None else fusion.to(self.device).eval()
-        self.config = config._replace(readout_strategy=resolve_strategy(
-            config.readout_strategy, self.device))
+        kernels = (KernelConfig.from_env() if config.kernels is None
+                   else config.kernels.checked())
+        self.config = config._replace(
+            readout_strategy=resolve_strategy(config.readout_strategy,
+                                              self.device),
+            kernels=kernels)
 
     # ------------------------------------------------------------------
     # feature precompute
@@ -139,7 +148,8 @@ class InferenceEngine:
         top_k = min(self.config.top_k, mmax * hw)
         readout = memory_readout(mk, qk, mv, top_k=top_k,
                                  valid_tokens=front * hw,
-                                 strategy=self.config.readout_strategy)
+                                 strategy=self.config.readout_strategy,
+                                 kernel_cfg=self.config.kernels)
         h16, w16 = feats.f16_thin.shape[1:3]
         readout = readout.reshape(k_obj, b, h16, w16, cv).transpose(0, 1)
         return self.stcn.decode_with_readout(

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``<repo>/.kernel_build/<name>-<hash>.so`` for ``sm_90a``.  The hash
-covers the source and the flags, so an edited kernel is rebuilt at its first
-use and an unchanged one is loaded as it is.  Nothing is built at import:
+covers the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited kernel is rebuilt at its first use and an unchanged one is loaded as
+it is.  Nothing is built at import:
 the first launch, or :func:`build_all`, builds.  A build that fails raises
 with the compiler's output.
 """
@@ -21,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernel_build"
-KERNELS = ("memory_topk", "memory_readout")
+KERNELS = ("memory_topk", "memory_topk_grid", "memory_topk_resident",
+           "memory_readout", "memory_readout_chunked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +42,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the shared library built from ``csrc/<name>.cu`` lives."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

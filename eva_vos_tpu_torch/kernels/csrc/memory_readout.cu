@@ -21,9 +21,7 @@
 // or 4 fp32), so every selected row is one coalesced 1 KB read in bf16.  The
 // loop over t is unrolled so that several row loads are in flight.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "readout_common.cuh"
 
 namespace {
 
@@ -31,42 +29,6 @@ constexpr int kGroup = 64;                  // threads per query
 constexpr int kGroups = 4;                  // queries in flight per block
 constexpr int kThreads = kGroup * kGroups;  // 256
 constexpr int kQueriesPerBlock = 16;
-
-template <typename T> struct Vec;
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* in) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-    }
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-};
-
-template <> struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  }
-  __device__ static void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

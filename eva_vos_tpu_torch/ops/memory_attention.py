@@ -95,22 +95,30 @@ def weighted_gather(mv, w, idx):
 
 
 def memory_readout(mk, qk, mv, top_k: int = 50, valid_tokens=None,
-                   strategy: str = "gather"):
+                   strategy: str = "gather", kernel_cfg=None):
     """Top-k attention readout.
 
     mk [M, CK] memory keys, qk [N, CK] query keys, mv [K, M, CV] memory
     values (K objects share one affinity).  ``strategy``: 'gather' (take
     the selected rows, weighted sum), 'scatter' (densify the sparse
-    softmax into [N, M] and multiply), or 'fused' (the selection and
-    readout kernels of ``eva_vos_tpu_torch.kernels``).
+    softmax into [N, M] and multiply), 'fused' (a selection kernel chained
+    into a readout kernel of ``eva_vos_tpu_torch.kernels``, chosen by
+    ``kernel_cfg``, a ``KernelConfig``; the JAX package's 'pallas_fused'),
+    or 'select' (the split-bank selection kernel, then the gather; the JAX
+    package's 'pallas').
     Returns [K, N, CV] in mv.dtype.
     """
     if strategy == "fused":
         from ..kernels.memory_readout import fused_readout
 
-        return fused_readout(mk, qk, mv, top_k, valid_tokens)
-    w, idx = memory_affinity_topk(mk, qk, top_k, valid_tokens)
-    if strategy == "gather":
+        return fused_readout(mk, qk, mv, top_k, valid_tokens, kernel_cfg)
+    if strategy == "select":
+        from ..kernels.memory_topk import select_topk
+
+        w, idx = select_topk(mk, qk, top_k, valid_tokens, method="grid")
+    else:
+        w, idx = memory_affinity_topk(mk, qk, top_k, valid_tokens)
+    if strategy in ("gather", "select"):
         return weighted_gather(mv, w, idx)
     if strategy == "scatter":
         n, m = qk.shape[0], mk.shape[0]

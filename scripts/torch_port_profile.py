@@ -1,6 +1,8 @@
 """Where the PyTorch port's engine spends one ``interact`` on the GPU.
 
     python3 scripts/torch_port_profile.py     # from the repo root, one GPU
+    python3 scripts/torch_port_profile.py --strategy fused \
+        --sel-method resident --readout-method grid
 
 Builds the engine as ``chip_smoke.py`` does (T=60, 480x854, ResNet-50 key
 and ResNet-18 value encoders, top_k=50, mem_freq=5, bf16, random weights
@@ -9,11 +11,15 @@ from seed 0), warms up, times three untraced interacts, then traces with
 and one at frame 30 from its result (both passes, fused through FusionNet).
 For each it prints the host wall time, the device busy time (union of the
 kernel intervals) and idle share, and the device time by kernel group and
-by kernel.  Results also go to ``chiprun_out/torch_port_profile.json``.
+by kernel.  ``--strategy`` ('auto', 'fused', 'select') and, for 'fused',
+``--sel-method`` / ``--readout-method`` choose the memory read as
+``EngineConfig`` does (default: 'auto' with the ``EVAVOS_*`` variables).
+Results also go to ``chiprun_out/torch_port_profile<--tag>.json``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -25,7 +31,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 GROUPS = (  # first match wins; lower-case substrings of kernel names
     ("memory_topk kernel", ("topk_kernel",)),
+    ("memory_topk chunked kernel", ("topk_chunked_kernel",)),
+    ("memory_topk_resident kernel", ("topk_resident_kernel",)),
+    ("memory_topk_grid kernels", ("topk_split_kernel", "topk_merge_kernel")),
     ("memory_readout kernel", ("readout_kernel",)),
+    ("memory_readout_chunked kernel", ("readout_chunked_kernel",)),
     ("convolution / matmul", ("conv", "xmma", "cudnn", "gemm", "sm90", "sm80",
                               "implicit", "cutlass", "wgrad", "dgrad")),
     ("sort / topk (plain ops)", ("sort", "topk", "radix")),
@@ -94,7 +104,17 @@ def trace(torch, fn) -> dict:
                      sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]])
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--strategy", default="auto",
+                    choices=("auto", "fused", "select"))
+    ap.add_argument("--sel-method", default=None,
+                    choices=("tournament", "chunked", "resident"))
+    ap.add_argument("--readout-method", default=None,
+                    choices=("grid", "chunked"))
+    ap.add_argument("--tag", default="",
+                    help="suffix of the JSON file's name")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -104,7 +124,7 @@ def main() -> int:
     from eva_vos_tpu_torch.data import synthetic_video
     from eva_vos_tpu_torch.engine import (EngineConfig, InferenceEngine,
                                           pad_mask, prepare_video)
-    from eva_vos_tpu_torch.kernels import build
+    from eva_vos_tpu_torch.kernels import KernelConfig, build
     from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
 
     card = subprocess.run(
@@ -118,7 +138,9 @@ def main() -> int:
         PropagationNetwork(key_arch="resnet50", value_arch="resnet18").to(dtype),
         FusionNet().to(dtype),
         EngineConfig(mem_freq=5, top_k=50, max_interactions=60,
-                     feature_chunk=2))
+                     feature_chunk=2, readout_strategy=args.strategy,
+                     kernels=KernelConfig(sel_method=args.sel_method,
+                                          readout_method=args.readout_method)))
     images, masks = synthetic_video(60, 480, 854, num_objects=1, seed=0)
     padded, pad = prepare_video(images, dtype=dtype)
     feats = engine.precompute_features(padded)
@@ -134,7 +156,10 @@ def main() -> int:
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) / 3 * 1e3
 
-    results = {"card": card, "untraced_interact0_ms": untraced_ms}
+    results = {"card": card, "strategy": engine.config.readout_strategy,
+               "kernels": engine.config.kernels._asdict(),
+               "untraced_interact0_ms": untraced_ms}
+    print(f"[read] {engine.config.readout_strategy} {engine.config.kernels}")
     results["interact0"] = trace(
         torch, lambda: engine.interact(state0, feats, m0, 0))
     results["interact30"] = trace(
@@ -152,7 +177,7 @@ def main() -> int:
             print(f"[{key}]     {k['ms']:.2f} ms x{k['count']}  {k['name']}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "torch_port_profile.json").write_text(
+    (out_dir / f"torch_port_profile{args.tag}.json").write_text(
         json.dumps(results, indent=1))
     return 0
 
