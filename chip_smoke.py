@@ -7,15 +7,24 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``eva_vos_tpu_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once);
-3. the four top-k selection kernels (oldest first, newest first with the
-   tau skip, two-pass resident, split bank) against their plain versions at
-   the engine's blocked-step shape (N = 5 x 1620 queries, CK = 64,
-   top_k = 50, bf16) on banks of 1, 12 and 72 slots of 1620 tokens, random
-   and clustered; the oldest-first and split-bank kernels also at a
-   single-frame step (N = 1620);
+3. the six top-k selection kernels (oldest first, newest first with the
+   tau skip, two-pass resident, split bank, and through ``select_topk``
+   iterative extraction, its default, and per-block sort) against their
+   plain versions at the engine's blocked-step shape (N = 5 x 1620 queries,
+   CK = 64, top_k = 50, bf16) on banks of 1, 12 and 72 slots of 1620
+   tokens, random and clustered; all but the newest-first and resident
+   kernels also at a single-frame step (N = 1620).  The library yardstick
+   of every selection is the dense score product as one ``torch.addmm``
+   (TF32 off and on, the faster kept) and ``torch.topk`` together
+   (``torch.topk`` alone on the plain scores is printed as ``topk_only``);
 4. the two readout kernels against their plain version (K = 1 and 2,
    CV = 512) on the oldest-first selections of phase 3;
-5. the engine at full width (T = 60, 480x854, resnet50/resnet18, top_k=50,
+5. the selection entry point ``select_topk`` at N = 8100 on a 72-slot
+   clustered bank, with no method and with method="sort": the launch
+   counters, zeroed just before each call, must show the iterative and the
+   sort kernel launched, and the weights and ids must match the plain
+   version;
+6. the engine at full width (T = 60, 480x854, resnet50/resnet18, top_k=50,
    mem_freq=5, bf16, random seeded weights), features computed once, under
    each memory read: the default 'fused' (oldest-first selection, grid
    readout), 'select' (split-bank selection + gather), and 'fused' with
@@ -25,8 +34,9 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    fuses through FusionNet); the launch counters, zeroed just before, must
    show the read's kernels launched, the outputs be finite, and one blocked
    segmentation step through the kernels must match the plain read;
-6. one JSON line with each kernel's launches (from the engine read that
-   runs it), error, times and bound.
+7. one JSON line with each kernel's launches (from the engine read that
+   runs it, or from phase 5 for the iterative and sort kernels), error,
+   times and bound.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 full results also go to ``chiprun_out/chip_smoke.json``.  Without a CUDA
@@ -36,6 +46,7 @@ device, or without the repository beside it, the script exits non-zero.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -69,17 +80,29 @@ READOUT_RTOL, READOUT_ATOL = 2 ** -7, 2e-2
 PROB_ATOL, PROB_FRAC = 5e-2, 1e-3
 
 
+# the selections that return [N, k] rows (softmax weights by default)
+ROW_SELECTIONS = ("memory_topk_grid", "memory_topk_iter", "memory_topk_sort")
+# the selections also checked and timed at a single-frame step (N = 1620)
+SINGLE_FRAME = ("memory_topk",) + ROW_SELECTIONS
+# select_topk's arguments that reach each entry-point kernel: no method for
+# its default, the iterative kernel
+ENTRY_KWARGS = {"memory_topk_iter": {}, "memory_topk_sort": {"method": "sort"}}
+
 # each kernel's source and the TPU kernel it replaces
 SOURCES = {"memory_topk": "memory_topk.cu",
            "memory_topk_chunked": "memory_topk.cu",
            "memory_topk_resident": "memory_topk_resident.cu",
            "memory_topk_grid": "memory_topk_grid.cu",
+           "memory_topk_iter": "memory_topk_iter.cu",
+           "memory_topk_sort": "memory_topk_sort.cu",
            "memory_readout": "memory_readout.cu",
            "memory_readout_chunked": "memory_readout_chunked.cu"}
 REPLACES = {"memory_topk": "eva_vos_tpu/kernels/memory_topk.py:380",
             "memory_topk_chunked": "eva_vos_tpu/kernels/memory_topk.py:590",
             "memory_topk_resident": "eva_vos_tpu/kernels/memory_topk.py:801",
             "memory_topk_grid": "eva_vos_tpu/kernels/memory_topk.py:302",
+            "memory_topk_iter": "eva_vos_tpu/kernels/memory_topk.py:187",
+            "memory_topk_sort": "eva_vos_tpu/kernels/memory_topk.py:264",
             "memory_readout": "eva_vos_tpu/kernels/memory_readout.py:64",
             "memory_readout_chunked":
                 "eva_vos_tpu/kernels/memory_readout.py:196"}
@@ -152,6 +175,36 @@ def selection_bound(n: int, valid: int):
     return bound_ms(n_bytes, 2.0 * n * valid * CK)
 
 
+def library_select(torch, mk, q):
+    """One library computation of the selection: the scores as one fp32
+    GEMM whose bias is -|k|^2 / sqrt(CK) (2 / sqrt(64) and 1 / sqrt(64) are
+    powers of two, so the result is the plain version's), then
+    ``torch.topk``.  The bias stays 1-D, so that cuBLASLt adds it in the
+    GEMM's epilogue instead of a [N, M] copy of it being read."""
+    mk32 = mk.float()
+    bias = (mk32 * mk32).sum(-1).mul_(-1.0 / math.sqrt(CK))
+    scores = torch.addmm(bias, q.float(), mk32.T, alpha=2.0 / math.sqrt(CK))
+    return torch.topk(scores, TOP_K, dim=1)
+
+
+def library_times(torch, mk, q, ref_vals):
+    """``library_select``'s time with TF32 off and on (bf16 keys convert to
+    TF32 exactly); each run's scores must match the plain version's."""
+    times = {}
+    for mode in ("fp32", "tf32"):
+        torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
+        try:
+            vals, _ = library_select(torch, mk, q)
+            err = (vals.T - ref_vals[:TOP_K]).abs().max().item()
+            if err > SCORE_ATOL:
+                fail(f"library selection ({mode}) scores differ by {err}")
+            times[mode] = cuda_ms(torch, lambda: library_select(torch, mk, q),
+                                  5)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    return times
+
+
 def readout_bound(idx, k_obj: int):
     """Bound of the readout: each distinct selected row once per object,
     the selection once, the output once; 2 flops per gathered element."""
@@ -162,7 +215,8 @@ def readout_bound(idx, k_obj: int):
 
 
 def kernel_phases(torch, results):
-    from eva_vos_tpu_torch.kernels import (topk_readout, topk_readout_chunked,
+    from eva_vos_tpu_torch.kernels import (select_topk, topk_readout,
+                                           topk_readout_chunked,
                                            topk_readout_plain, topk_select,
                                            topk_select_chunked,
                                            topk_select_grid, topk_select_plain,
@@ -184,6 +238,16 @@ def kernel_phases(torch, results):
         vals, idx = topk_select_grid(q, mk, valid, top_k, return_raw=True)
         return vals.T, idx.T
 
+    def entry_transposed(kwargs):
+        def select(q, mk, valid, top_k):
+            vals, idx = select_topk(mk, q, top_k, valid, return_raw=True,
+                                    **kwargs)
+            return vals.T, idx.T
+        return select
+
+    def entry_timed(kwargs):
+        return lambda q, mk, valid: select_topk(mk, q, TOP_K, valid, **kwargs)
+
     # (name in the kernels line, transposed selection, the call timed)
     selectors = (
         ("memory_topk", topk_select,
@@ -194,25 +258,28 @@ def kernel_phases(torch, results):
          lambda q, mk, valid: topk_select_resident(q, mk, valid, TOP_K)),
         ("memory_topk_grid", grid_transposed,
          lambda q, mk, valid: topk_select_grid(q, mk, valid, TOP_K)),
-    )
+    ) + tuple((name, entry_transposed(kwargs), entry_timed(kwargs))
+              for name, kwargs in ENTRY_KWARGS.items())
     for clustered in (False, True):
         for fill in FILLS:
             mk, valid = make_bank(torch, gen, qk, fill, clustered)
             case = f"fill{fill}_{'clustered' if clustered else 'random'}"
-            scores = _scores(mk[:valid], qk)
-            lib_ms = cuda_ms(torch, lambda: torch.topk(scores, TOP_K, dim=1), 5)
-            del scores
             for n in (N_QUERIES, HW_TOKENS):
                 q = qk[:n]
                 ref_vals, ref_idx = topk_select_plain(q, mk, valid, TOP_K + 1)
+                lib = library_times(torch, mk[:valid], q, ref_vals)
+                lib_ms = min(lib.values())
+                scores = _scores(mk[:valid], q)
+                topk_only_ms = cuda_ms(
+                    torch, lambda: torch.topk(scores, TOP_K, dim=1), 5)
+                del scores
                 plain_ms = cuda_ms(
                     torch, lambda: topk_select_plain(q, mk, valid, TOP_K), 3)
                 affinity_ms = cuda_ms(
                     torch, lambda: memory_affinity_topk(mk, q, TOP_K, valid), 3)
                 bound, by = selection_bound(n, valid)
                 for name, select, timed in selectors:
-                    if n != N_QUERIES and name not in ("memory_topk",
-                                                       "memory_topk_grid"):
+                    if n != N_QUERIES and name not in SINGLE_FRAME:
                         continue
                     esc.zero_()
                     if name == "memory_topk_resident":
@@ -223,8 +290,8 @@ def kernel_phases(torch, results):
                     label = f"{name} {case} N={n}"
                     err, n_diff = check_selection(torch, vals, idx, ref_vals,
                                                   ref_idx, label)
-                    if name == "memory_topk_grid":
-                        w, wi = topk_select_grid(q, mk, valid, TOP_K)
+                    if name in ROW_SELECTIONS:
+                        w, wi = timed(q, mk, valid)
                         if not torch.equal(wi.T, idx) or not torch.allclose(
                                 w, softmax_weights(vals.T), rtol=1e-6,
                                 atol=1e-7):
@@ -232,14 +299,19 @@ def kernel_phases(torch, results):
                     ms = cuda_ms(torch, lambda: timed(q, mk, valid), 10)
                     row = dict(kernel=name, case=case, n=n, max_abs_err=err,
                                ids_differ=n_diff, ms=ms,
-                               plain_ms=(affinity_ms if name == "memory_topk_grid"
+                               plain_ms=(affinity_ms if name in ROW_SELECTIONS
                                          else plain_ms),
-                               library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                               library_ms=lib_ms, library_fp32_ms=lib["fp32"],
+                               library_tf32_ms=lib["tf32"],
+                               topk_only_ms=topk_only_ms,
+                               bound_ms=bound, bound_by=by,
                                escalated_blocks=int(esc.item()))
                     sel_rows.append(row)
                     print(f"[select] {label}: max|dv|={err:.3g} ids_differ="
                           f"{n_diff} kernel {ms:.3f} ms, plain "
-                          f"{row['plain_ms']:.3f} ms, torch.topk {lib_ms:.3f} "
+                          f"{row['plain_ms']:.3f} ms, addmm+torch.topk "
+                          f"{lib_ms:.3f} ms (fp32 {lib['fp32']:.3f}, tf32 "
+                          f"{lib['tf32']:.3f}), topk_only {topk_only_ms:.3f} "
                           f"ms, bound {bound:.4f} ms ({by})"
                           + (f", escalated blocks {row['escalated_blocks']}"
                              if name == "memory_topk_resident" else ""),
@@ -285,6 +357,48 @@ def kernel_phases(torch, results):
     results["selection"], results["readout"] = sel_rows, ro_rows
 
 
+def entry_phase(torch, results):
+    """``select_topk`` as a user calls it, at N = 8100 on a 72-slot
+    clustered bank: with no method (the iterative kernel) and with
+    method="sort".  Returns each kernel's launches from its call."""
+    from eva_vos_tpu_torch.kernels import select_topk, topk_select_plain
+    from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    qk = torch.randn((N_QUERIES, CK), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mk, valid = make_bank(torch, gen, qk, max(FILLS), clustered=True)
+    ref_vals, ref_idx = topk_select_plain(qk, mk, valid, TOP_K + 1)
+    counters = launch_counters()
+    launches, rows = {}, []
+    for name, kwargs in ENTRY_KWARGS.items():
+        for c in counters.values():
+            c.launches = 0
+        w, idx = select_topk(mk, qk, TOP_K, valid, **kwargs)
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        if counts[name] <= 0 or sum(counts.values()) != counts[name]:
+            fail(f"select_topk({kwargs}) launched {counts}, not {name}")
+        launches[name] = counts[name]
+        vals, raw_idx = select_topk(mk, qk, TOP_K, valid, return_raw=True,
+                                    **kwargs)
+        if not torch.equal(raw_idx, idx) or not torch.allclose(
+                w, softmax_weights(vals), rtol=1e-6, atol=1e-7):
+            fail(f"select_topk({kwargs}): weights disagree with raw scores")
+        err, n_diff = check_selection(torch, vals.T, idx.T, ref_vals, ref_idx,
+                                      f"select_topk({kwargs})")
+        if w.shape != (N_QUERIES, TOP_K) or not torch.isfinite(w).all():
+            fail(f"select_topk({kwargs}): weights {tuple(w.shape)} not finite")
+        rows.append(dict(kernel=name, kwargs=kwargs, launches=counts,
+                         max_abs_err=err, ids_differ=n_diff))
+        print(f"[entry] select_topk(mk, qk, {TOP_K}, {valid}, **{kwargs}) "
+              f"launched "
+              f"{counts}; max|dv|={err:.3g} ids_differ={n_diff}", flush=True)
+    results["entry"] = rows
+    return launches
+
+
 def engine_paths():
     """The engine's memory reads: name -> (EngineConfig fields, the kernels
     that read must launch)."""
@@ -313,6 +427,8 @@ def launch_counters():
             "memory_topk_chunked": K.topk_select_chunked,
             "memory_topk_resident": K.topk_select_resident,
             "memory_topk_grid": K.topk_select_grid,
+            "memory_topk_iter": K.topk_select_iter,
+            "memory_topk_sort": K.topk_select_sort,
             "memory_readout": K.topk_readout,
             "memory_readout_chunked": K.topk_readout_chunked}
 
@@ -421,7 +537,8 @@ def kernels_line(results, launches):
     """Each kernel's entry of the kernels JSON line: its time, plain time,
     library time and bound at a 72-slot clustered bank (N = 8100; readouts
     K = 1), its largest error over all cases, and its launches on the engine
-    read that runs it."""
+    read that runs it (on the entry-point phase for the kernels that no
+    engine read runs)."""
 
     def row(name, rows):
         mine = [r for r in rows if r["kernel"] == name]
@@ -471,7 +588,9 @@ def main() -> int:
 
     results = {"card": card, "build_s": build_s}
     kernel_phases(torch, results)
+    entry_launches = entry_phase(torch, results)
     launches = engine_phase(torch, results, card)
+    launches.update(entry_launches)
 
     kernels = kernels_line(results, launches)
     out_dir = ROOT / "chiprun_out"

@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernel_build"
 KERNELS = ("memory_topk", "memory_topk_grid", "memory_topk_resident",
-           "memory_readout", "memory_readout_chunked")
+           "memory_topk_iter", "memory_topk_sort", "memory_readout",
+           "memory_readout_chunked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

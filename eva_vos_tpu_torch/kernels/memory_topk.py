@@ -13,7 +13,14 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
 * :func:`topk_select_grid` — ``pallas_memory_topk(method="grid")``
   (``_kernel_grid``), split bank plus merge, kernel
   ``csrc/memory_topk_grid.cu``;
-* :func:`select_topk` — ``pallas_memory_topk``: a method name to one of them.
+* :func:`topk_select_iter` — ``pallas_memory_topk(method="iterative")``
+  (``_kernel_iter``), per-block k-pass extraction into a candidate buffer,
+  then one extraction, kernel ``csrc/memory_topk_iter.cu``;
+* :func:`topk_select_sort` — ``pallas_memory_topk(method="sort")``
+  (``_kernel``), per-block bitonic sort, then a merge of the sorted lists,
+  kernel ``csrc/memory_topk_sort.cu``;
+* :func:`select_topk` — ``pallas_memory_topk``: a method name to one of them,
+  'iterative' by default as there.
 
 Each source note says what bounds its kernel and how its design answers that.
 
@@ -23,9 +30,12 @@ mk [M, CK] in fp32 or bf16 (the kernels take CK = 64) ->
 over tokens < ``valid_tokens``, ties to the lowest id.  Where
 valid_tokens < top_k the trailing slots hold -1e30 with unspecified (but
 in-range) ids; their softmax weight is exactly 0.  Their plain version is
-:func:`topk_select_plain`.  Each wrapper takes it for CPU tensors only; for
-CUDA tensors it launches its kernel or raises, and counts launches in
-``<wrapper>.launches``.
+:func:`topk_select_plain`.  The row selectors (grid, iterative, sort) return
+the same selection as [N, top_k] softmax weights (or raw scores with
+``return_raw``) and int32 ids; their plain version is
+``memory_affinity_topk`` (``topk_scores`` for raw scores).  Each wrapper
+takes its plain version for CPU tensors only; for CUDA tensors it launches
+its kernel or raises, and counts launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SPLITS = 16      # memory_topk_grid.cu's kMaxSplits
 _SPLIT_UNIT = 128     # bank tokens per staged tile
 _TARGET_BLOCKS = 264  # two 256-thread selection blocks on each of 132 SMs
+_SELECT_BLOCK = 2048  # bank tokens per block of the iterative and sort kernels
 
 
 def topk_select_plain(qk, mk, valid_tokens, top_k: int):
@@ -74,6 +85,18 @@ def _lib() -> ctypes.CDLL:
 def _grid_lib() -> ctypes.CDLL:
     return _bind("memory_topk_grid", "memory_topk_grid_launch",
                  [_P] * 6 + [_I] * 8 + [_P])
+
+
+@functools.lru_cache(maxsize=None)
+def _iter_lib() -> ctypes.CDLL:
+    return _bind("memory_topk_iter", "memory_topk_iter_launch",
+                 [_P] * 6 + [_I] * 7 + [_P])
+
+
+@functools.lru_cache(maxsize=None)
+def _sort_lib() -> ctypes.CDLL:
+    return _bind("memory_topk_sort", "memory_topk_sort_launch",
+                 [_P] * 5 + [_I] * 7 + [_P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,6 +140,20 @@ def _transposed_outputs(qk, top_k: int):
     n = qk.shape[0]
     return (torch.empty((top_k, n), dtype=torch.float32, device=qk.device),
             torch.empty((top_k, n), dtype=torch.int32, device=qk.device))
+
+
+def _row_outputs(qk, top_k: int):
+    n = qk.shape[0]
+    return (torch.empty((n, top_k), dtype=torch.float32, device=qk.device),
+            torch.empty((n, top_k), dtype=torch.int32, device=qk.device))
+
+
+def _row_selection_plain(qk, mk, valid_tokens, top_k: int, return_raw: bool):
+    """Plain version of the row selectors: softmax weights (or raw scores)
+    and int32 ids, [N, top_k]."""
+    fn = topk_scores if return_raw else memory_affinity_topk
+    w, idx = fn(mk, qk, top_k, valid_tokens)
+    return w, idx.to(torch.int32)
 
 
 def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
@@ -197,9 +234,7 @@ def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     ``return_raw``.  Plain version: ``memory_affinity_topk`` (and
     ``topk_scores`` for raw scores), ids as int32."""
     if _on_cpu(qk, mk):
-        fn = topk_scores if return_raw else memory_affinity_topk
-        w, idx = fn(mk, qk, top_k, valid_tokens)
-        return w, idx.to(torch.int32)
+        return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
     n = qk.shape[0]
     split_len, n_splits = _bank_splits(n, valid)
@@ -207,8 +242,7 @@ def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
                          device=qk.device)
     part_i = torch.empty((n_splits, top_k, n), dtype=torch.int32,
                          device=qk.device)
-    out_v = torch.empty((n, top_k), dtype=torch.float32, device=qk.device)
-    out_i = torch.empty((n, top_k), dtype=torch.int32, device=qk.device)
+    out_v, out_i = _row_outputs(qk, top_k)
     lib = _grid_lib()
     status = lib.memory_topk_grid_launch(
         qk.data_ptr(), mk.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
@@ -219,29 +253,82 @@ def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     return out_v, out_i
 
 
+def _live_blocks(valid: int) -> int:
+    """Bank blocks of the iterative and sort kernels below the fill (one
+    at least, so that an empty bank still writes its -1e30 slots)."""
+    return max(1, -(-valid // _SELECT_BLOCK))
+
+
+def topk_select_iter(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
+                     top_k: int, return_raw: bool = False):
+    """Top-k selection by per-block k-pass extraction into a candidate
+    buffer [N, live blocks * top_k] and one extraction over it -> (weights,
+    or raw scores with ``return_raw``, [N, top_k] fp32; ids [N, top_k]
+    int32).  Plain version: ``memory_affinity_topk`` / ``topk_scores``."""
+    if _on_cpu(qk, mk):
+        return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
+    valid = _check_selection(qk, mk, valid_tokens, top_k)
+    n, n_live = qk.shape[0], _live_blocks(valid)
+    cand_v = torch.empty((n, n_live * top_k), dtype=torch.float32,
+                         device=qk.device)
+    cand_i = torch.empty((n, n_live * top_k), dtype=torch.int32,
+                         device=qk.device)
+    out_v, out_i = _row_outputs(qk, top_k)
+    lib = _iter_lib()
+    status = lib.memory_topk_iter_launch(
+        qk.data_ptr(), mk.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
+        out_v.data_ptr(), out_i.data_ptr(), n, valid, _CK, top_k, n_live,
+        int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk))
+    build.check("memory_topk_iter", lib, status)
+    topk_select_iter.launches += 1
+    return out_v, out_i
+
+
+def topk_select_sort(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
+                     top_k: int, return_raw: bool = False):
+    """Top-k selection by a bitonic sort of each bank block's scores and a
+    merge of the blocks' sorted top-k lists; outputs and plain version as
+    :func:`topk_select_iter`."""
+    if _on_cpu(qk, mk):
+        return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
+    valid = _check_selection(qk, mk, valid_tokens, top_k)
+    n, n_live = qk.shape[0], _live_blocks(valid)
+    part = torch.empty((n, n_live, top_k), dtype=torch.int64,
+                       device=qk.device)
+    out_v, out_i = _row_outputs(qk, top_k)
+    lib = _sort_lib()
+    status = lib.memory_topk_sort_launch(
+        qk.data_ptr(), mk.data_ptr(), part.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), n, valid, _CK, top_k, n_live,
+        int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk))
+    build.check("memory_topk_sort", lib, status)
+    topk_select_sort.launches += 1
+    return out_v, out_i
+
+
 for _fn in (topk_select, topk_select_chunked, topk_select_resident,
-            topk_select_grid):
+            topk_select_grid, topk_select_iter, topk_select_sort):
     _fn.launches = 0
 
 # the transposed selectors by the JAX package's method names
 SELECTORS = {"tournament": topk_select, "chunked": topk_select_chunked,
              "resident": topk_select_resident}
+# the selectors that return [N, top_k] rows
+ROW_SELECTORS = {"iterative": topk_select_iter, "sort": topk_select_sort,
+                 "grid": topk_select_grid}
 
 
 def select_topk(mk: torch.Tensor, qk: torch.Tensor, top_k: int,
-                valid_tokens=None, *, method: str, return_raw: bool = False):
+                valid_tokens=None, *, method: str = "iterative",
+                return_raw: bool = False):
     """Exact top-k per query: (softmax weights [N, top_k] fp32, or the raw
     scores with ``return_raw``; ids [N, top_k] int32).  The counterpart of
     ``pallas_memory_topk`` (``eva_vos_tpu/kernels/memory_topk.py:1096``);
-    ``method`` names the kernel as there: 'grid', 'tournament', 'chunked'
-    or 'resident'.  'iterative' (the JAX default) and 'sort' are not ported
-    yet, so ``method`` has no default."""
-    if method in ("iterative", "sort"):
-        raise ValueError(f"select_topk method {method!r} is not ported yet "
-                         f"(ROADMAP.md, TPU kernels still to port)")
-    if method == "grid":
-        return topk_select_grid(qk, mk, valid_tokens, top_k,
-                                return_raw=return_raw)
+    ``method`` names the kernel as there: 'iterative' (the default), 'sort',
+    'grid', 'tournament', 'chunked' or 'resident'.  Any other name raises."""
+    if method in ROW_SELECTORS:
+        return ROW_SELECTORS[method](qk, mk, valid_tokens, top_k,
+                                     return_raw=return_raw)
     if method not in SELECTORS:
         raise ValueError(f"unknown select_topk method {method!r}")
     vals, idx = SELECTORS[method](qk, mk, valid_tokens, top_k)

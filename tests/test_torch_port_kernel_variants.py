@@ -1,10 +1,12 @@
 """The port's other memory reads against the JAX package's, on the CPU.
 
 * ``select_topk(method=m)`` against ``pallas_memory_topk(method=m)`` in
-  interpret mode for the four ported methods, on exact ties, partial fills
-  (valid < M and valid < top_k), a query count that is not a multiple of
-  the block, bf16 inputs, and winners packed into one 128-token group (the
-  JAX kernels' escalation case);
+  interpret mode for all six methods, on exact ties, partial fills
+  (valid < M, valid < top_k, and a fill that ends mid-block in a bank of
+  eight blocks, past which the iterative kernel skips), a query count that
+  is not a multiple of the block, bf16 inputs, and winners packed into one
+  128-token group (the JAX kernels' escalation case); ``select_topk`` with
+  no method against ``pallas_memory_topk`` with no method ('iterative');
 * ``memory_readout(strategy="fused", kernel_cfg=KernelConfig(s, r))``
   against ``pallas_fused_readout(kcfg=KernelConfig(s, r))`` in interpret
   mode for every (selection, readout) pair;
@@ -42,12 +44,13 @@ from eva_vos_tpu_torch.engine import EngineConfig, InferenceEngine
 from eva_vos_tpu_torch.kernels import (KernelConfig, fused_readout,
                                        select_topk, topk_readout_chunked,
                                        topk_select_chunked, topk_select_grid,
-                                       topk_select_resident)
+                                       topk_select_iter, topk_select_resident,
+                                       topk_select_sort)
 from eva_vos_tpu_torch.ops import memory_attention as mem
 from test_torch_port_engine import (H, MEM_FREQ, ROUNDS, T, TOP_K, W,
                                     _port_session, nets)  # noqa: F401
 
-METHODS = ("grid", "tournament", "chunked", "resident")
+METHODS = ("iterative", "sort", "grid", "tournament", "chunked", "resident")
 
 # (m, n, ck, top_k, valid, block_q, block_m, inputs)
 SELECT_CASES = {
@@ -58,6 +61,7 @@ SELECT_CASES = {
     "n_not_block_multiple": (512, 37, 16, 8, 200, 32, 128, "random"),
     "bf16": (512, 64, 16, 8, None, 32, 128, "random"),
     "escalation": (512, 64, 16, 16, None, 32, 512, "dominant"),
+    "fill_ends_mid_block": (1024, 64, 16, 8, 700, 32, 128, "random"),
 }
 
 
@@ -110,12 +114,21 @@ def test_select_topk_raw_scores(rng):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("method", ["iterative", "sort", "bogus"])
-def test_select_topk_unported_methods_raise(method):
+def test_select_topk_default_method_matches_pallas(rng):
+    """No method on either side: the JAX default 'iterative' and its port."""
+    mk, qk = _keys(rng, 512, 40, 16, "random")
+    w, idx = select_topk(torch.from_numpy(mk), torch.from_numpy(qk), 8, 300)
+    ref_w, ref_i = pallas_memory_topk(jnp.asarray(mk), jnp.asarray(qk), 8,
+                                      300, interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_i))
+    np.testing.assert_allclose(w.numpy(), np.asarray(ref_w), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_select_topk_unknown_method_raises():
     x = torch.zeros((4, 64))
-    with pytest.raises(ValueError, match="ROADMAP" if method != "bogus"
-                       else "unknown"):
-        select_topk(x, x, 2, method=method)
+    with pytest.raises(ValueError, match="unknown"):
+        select_topk(x, x, 2, method="bogus")
 
 
 @pytest.mark.parametrize("sel", ["tournament", "chunked", "resident"])
@@ -189,13 +202,16 @@ def _meta(*shape, dtype=torch.float32):
     lambda: topk_select_chunked(_meta(8, 64), _meta(64, 64), 8, 4),
     lambda: topk_select_resident(_meta(8, 64), _meta(64, 64), 8, 4),
     lambda: topk_select_grid(_meta(8, 64), _meta(64, 64), 8, 4),
+    lambda: topk_select_iter(_meta(8, 64), _meta(64, 64), 8, 4),
+    lambda: topk_select_sort(_meta(8, 64), _meta(64, 64), 8, 4),
     lambda: select_topk(_meta(64, 64), _meta(8, 64), 4, method="resident"),
+    lambda: select_topk(_meta(64, 64), _meta(8, 64), 4),
     lambda: topk_readout_chunked(_meta(1, 64, 64), _meta(4, 8),
                                  _meta(4, 8, dtype=torch.int32)),
     lambda: fused_readout(_meta(64, 64), _meta(8, 64), _meta(1, 64, 64), 4,
                           kcfg=KernelConfig("chunked", "chunked")),
-], ids=["chunked", "resident", "grid", "select_topk", "readout_chunked",
-        "fused_chunked"])
+], ids=["chunked", "resident", "grid", "iterative", "sort", "select_topk",
+        "select_topk_default", "readout_chunked", "fused_chunked"])
 def test_new_wrappers_refuse_meta_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
         call()

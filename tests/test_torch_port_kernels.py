@@ -24,14 +24,15 @@ from eva_vos_tpu_torch.engine import (EngineConfig, InferenceEngine, pad_mask,
                                       prepare_video)
 from eva_vos_tpu_torch.data import synthetic_video
 from eva_vos_tpu_torch.kernels import (KernelConfig, build, fused_readout,
-                                       fused_readout_plain, topk_readout,
-                                       topk_readout_chunked,
+                                       fused_readout_plain, select_topk,
+                                       topk_readout, topk_readout_chunked,
                                        topk_readout_plain, topk_select,
                                        topk_select_chunked, topk_select_grid,
-                                       topk_select_plain,
-                                       topk_select_resident)
+                                       topk_select_iter, topk_select_plain,
+                                       topk_select_resident, topk_select_sort)
 from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
-from eva_vos_tpu_torch.ops.memory_attention import memory_affinity_topk
+from eva_vos_tpu_torch.ops.memory_attention import (memory_affinity_topk,
+                                                    topk_scores)
 
 
 @pytest.fixture
@@ -130,6 +131,111 @@ def test_selection_variants_tie_to_lowest_id(cuda, variant, dtype):
     _, idx = VARIANTS[variant][0](qk, mk, 1990, 50)
     np.testing.assert_array_equal(idx.cpu().numpy(),
                                   _oracle_topk(qk, mk, 1990, 50))
+
+
+# the row selectors of select_topk's 'iterative' and 'sort' methods
+ROW_SELECTORS = {"iterative": topk_select_iter, "sort": topk_select_sort}
+FRAME_TOKENS = 30 * 54  # key tokens of one 480x864 frame
+
+
+def _assert_same_selection(vals, idx, ref_vals, ref_idx, atol):
+    """Scores within atol of the plain version's; ids equal except where
+    the plain version's neighbouring scores lie within atol (a near-tie
+    that summing in another order may swap)."""
+    torch.testing.assert_close(vals, ref_vals, rtol=0, atol=atol)
+    close = (ref_vals[:, :-1] - ref_vals[:, 1:]).abs() <= atol
+    tied = torch.zeros_like(idx, dtype=torch.bool)
+    tied[:, :-1] |= close
+    tied[:, 1:] |= close
+    assert not ((idx != ref_idx) & ~tied).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(ROW_SELECTORS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [FRAME_TOKENS, 333])
+@pytest.mark.parametrize("fill", [1, 12, 72])
+def test_row_selection_kernels_at_bank_fills(cuda, method, dtype, n, fill):
+    """The iterative and sort kernels at the engine's bank fills (1, 12 and
+    72 frames of 1,620 tokens) in a 72-frame bank, N = 1,620 and ragged."""
+    fn = ROW_SELECTORS[method]
+    g = torch.Generator(device=cuda).manual_seed(fill)
+    qk = torch.randn((n, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((72 * FRAME_TOKENS, 64), generator=g, device=cuda).to(
+        dtype)
+    valid = fill * FRAME_TOKENS
+    before = fn.launches
+    vals, idx = fn(qk, mk, valid, 50, return_raw=True)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert vals.shape == idx.shape == (n, 50) and idx.dtype == torch.int32
+    pv, pi = topk_scores(mk, qk, 50, valid)
+    _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(ROW_SELECTORS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", [5000, 3000, 20])
+@pytest.mark.parametrize("top_k", [50, 64, 100, 256])
+def test_row_selection_kernels_partial_fills(cuda, method, dtype, valid,
+                                             top_k):
+    """A full bank of three blocks, a fill ending mid-block (3,000 =
+    2,048 + 952), and fewer valid tokens than top_k; raw scores and
+    weights.  top_k past 64 runs the sort kernel's shared-memory bitonic
+    stages (runs of 128 and 256 keys) and the longer extractions."""
+    fn = ROW_SELECTORS[method]
+    g = torch.Generator(device=cuda).manual_seed(valid)
+    qk = torch.randn((300, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((5000, 64), generator=g, device=cuda).to(dtype)
+    vals, idx = fn(qk, mk, valid, top_k, return_raw=True)
+    assert vals.shape == idx.shape == (300, top_k)
+    pv, pi = topk_scores(mk, qk, top_k, valid)
+    live = min(valid, top_k)
+    _assert_same_selection(vals[:, :live], idx[:, :live], pv[:, :live],
+                           pi[:, :live].to(torch.int32), 1e-4)
+    assert torch.all(vals[:, live:] == -1e30)
+    assert int(idx.min()) >= 0 and int(idx.max()) < valid
+    w, widx = fn(qk, mk, valid, top_k)
+    pw, _ = memory_affinity_topk(mk, qk, top_k, valid)
+    assert torch.equal(widx, idx)
+    torch.testing.assert_close(w, pw, rtol=1e-5, atol=1e-6)
+    assert torch.all(w[:, live:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(ROW_SELECTORS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [50, 256])
+def test_row_selection_kernels_exact_ties(cuda, method, dtype, top_k):
+    """300 copies of each of 10 keys: every selected token ties 299 others;
+    the ids must be the lowest, as the plain version's."""
+    rng = np.random.default_rng(4)
+    mk = torch.from_numpy(np.tile(rng.standard_normal((10, 64)), (300, 1))
+                          .astype(np.float32)).to(cuda, dtype)
+    qk = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)
+                          ).to(cuda, dtype)
+    _, idx = ROW_SELECTORS[method](qk, mk, 3000, top_k)
+    _, pi = topk_scores(mk, qk, top_k, 3000)
+    assert torch.equal(idx, pi.to(torch.int32))
+    np.testing.assert_array_equal(idx.cpu().numpy().T,
+                                  _oracle_topk(qk, mk, 3000, top_k))
+
+
+@pytest.mark.cuda
+def test_select_topk_default_launches_iterative(cuda):
+    """select_topk with no method runs the iterative kernel; 'sort' the
+    sort kernel."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qk = torch.randn((100, 64), generator=g, device=cuda)
+    mk = torch.randn((3000, 64), generator=g, device=cuda)
+    before = (topk_select_iter.launches, topk_select_sort.launches)
+    w, idx = select_topk(mk, qk, 50, 2500)
+    ws, idxs = select_topk(mk, qk, 50, 2500, method="sort")
+    assert (topk_select_iter.launches, topk_select_sort.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(idx, idxs)
+    torch.testing.assert_close(w, ws, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.cuda
