@@ -80,6 +80,9 @@ READOUT_RTOL, READOUT_ATOL = 2 ** -7, 2e-2
 PROB_ATOL, PROB_FRAC = 5e-2, 1e-3
 
 
+SORT_BLOCK = 2048             # bank tokens per block of the sort kernel
+SORT_KERNELS = ("topk_sort_block_kernel", "topk_sort_merge_kernel")
+
 # the selections that return [N, k] rows (softmax weights by default)
 ROW_SELECTIONS = ("memory_topk_grid", "memory_topk_iter", "memory_topk_sort")
 # the selections also checked and timed at a single-frame step (N = 1620)
@@ -133,6 +136,42 @@ def cuda_ms(torch, fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return sorted(times)[len(times) // 2]
+
+
+def sort_split_ms(torch, fn, reps: int = 5) -> dict:
+    """Mean device time of each of the sort selection's two kernels over
+    ``reps`` calls of ``fn``, from a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {k: 0.0 for k in SORT_KERNELS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in SORT_KERNELS:
+            if k in e.name:
+                us[k] += e.time_range.end - e.time_range.start
+    if not all(us.values()):
+        fail(f"the profiler saw no sort kernel: {us}")
+    return {"block_ms": us[SORT_KERNELS[0]] / reps / 1e3,
+            "merge_ms": us[SORT_KERNELS[1]] / reps / 1e3}
+
+
+def hmma_count(build, name: str):
+    """HMMA (tensor-core) instructions in a built library's SASS, or None
+    where the toolkit has no ``cuobjdump``."""
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return sum("HMMA" in line for line in out.splitlines())
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -214,13 +253,16 @@ def readout_bound(idx, k_obj: int):
     return bound_ms(n_bytes, 2.0 * k_obj * n * TOP_K * CV), rows
 
 
-def kernel_phases(torch, results):
+def kernel_phases(torch, results, names=tuple(SOURCES)):
+    """Phases 3 and 4 for the kernels in ``names`` (the readouts need the
+    oldest-first selection, memory_topk)."""
     from eva_vos_tpu_torch.kernels import (select_topk, topk_readout,
                                            topk_readout_chunked,
                                            topk_readout_plain, topk_select,
                                            topk_select_chunked,
                                            topk_select_grid, topk_select_plain,
-                                           topk_select_resident)
+                                           topk_select_resident,
+                                           topk_select_sort)
     from eva_vos_tpu_torch.ops.memory_attention import (_scores,
                                                         memory_affinity_topk,
                                                         softmax_weights)
@@ -234,32 +276,41 @@ def kernel_phases(torch, results):
     esc = torch.zeros(1, dtype=torch.int32, device=dev)
     sel_rows, ro_rows = [], []
 
+    def resident_counted(q, mk, valid, top_k):
+        return topk_select_resident(q, mk, valid, top_k, escalations=esc)
+
     def grid_transposed(q, mk, valid, top_k):
         vals, idx = topk_select_grid(q, mk, valid, top_k, return_raw=True)
         return vals.T, idx.T
 
-    def entry_transposed(kwargs):
-        def select(q, mk, valid, top_k):
-            vals, idx = select_topk(mk, q, top_k, valid, return_raw=True,
-                                    **kwargs)
-            return vals.T, idx.T
-        return select
+    def iter_transposed(q, mk, valid, top_k):
+        vals, idx = select_topk(mk, q, top_k, valid, return_raw=True)
+        return vals.T, idx.T
+
+    def sort_transposed(q, mk, valid, top_k):
+        vals, idx = topk_select_sort(q, mk, valid, top_k, return_raw=True,
+                                     escalations=esc)
+        return vals.T, idx.T
 
     def entry_timed(kwargs):
         return lambda q, mk, valid: select_topk(mk, q, TOP_K, valid, **kwargs)
 
-    # (name in the kernels line, transposed selection, the call timed)
+    # (name in the kernels line, transposed selection (counting escalations
+    # where the kernel has them), the call timed)
     selectors = (
         ("memory_topk", topk_select,
          lambda q, mk, valid: topk_select(q, mk, valid, TOP_K)),
         ("memory_topk_chunked", topk_select_chunked,
          lambda q, mk, valid: topk_select_chunked(q, mk, valid, TOP_K)),
-        ("memory_topk_resident", topk_select_resident,
+        ("memory_topk_resident", resident_counted,
          lambda q, mk, valid: topk_select_resident(q, mk, valid, TOP_K)),
         ("memory_topk_grid", grid_transposed,
          lambda q, mk, valid: topk_select_grid(q, mk, valid, TOP_K)),
-    ) + tuple((name, entry_transposed(kwargs), entry_timed(kwargs))
-              for name, kwargs in ENTRY_KWARGS.items())
+        ("memory_topk_iter", iter_transposed,
+         entry_timed(ENTRY_KWARGS["memory_topk_iter"])),
+        ("memory_topk_sort", sort_transposed,
+         entry_timed(ENTRY_KWARGS["memory_topk_sort"])),
+    )
     for clustered in (False, True):
         for fill in FILLS:
             mk, valid = make_bank(torch, gen, qk, fill, clustered)
@@ -279,14 +330,11 @@ def kernel_phases(torch, results):
                     torch, lambda: memory_affinity_topk(mk, q, TOP_K, valid), 3)
                 bound, by = selection_bound(n, valid)
                 for name, select, timed in selectors:
-                    if n != N_QUERIES and name not in SINGLE_FRAME:
+                    if name not in names or (n != N_QUERIES
+                                             and name not in SINGLE_FRAME):
                         continue
                     esc.zero_()
-                    if name == "memory_topk_resident":
-                        vals, idx = topk_select_resident(q, mk, valid, TOP_K,
-                                                         escalations=esc)
-                    else:
-                        vals, idx = select(q, mk, valid, TOP_K)
+                    vals, idx = select(q, mk, valid, TOP_K)
                     label = f"{name} {case} N={n}"
                     err, n_diff = check_selection(torch, vals, idx, ref_vals,
                                                   ref_idx, label)
@@ -304,21 +352,32 @@ def kernel_phases(torch, results):
                                library_ms=lib_ms, library_fp32_ms=lib["fp32"],
                                library_tf32_ms=lib["tf32"],
                                topk_only_ms=topk_only_ms,
-                               bound_ms=bound, bound_by=by,
-                               escalated_blocks=int(esc.item()))
+                               bound_ms=bound, bound_by=by)
+                    note = ""
+                    if name == "memory_topk_resident":
+                        row["escalated_blocks"] = int(esc.item())
+                        note = f", escalated blocks {row['escalated_blocks']}"
+                    elif name == "memory_topk_sort":
+                        rows = n * -(-valid // SORT_BLOCK)
+                        row.update(sort_split_ms(
+                            torch, lambda: timed(q, mk, valid)),
+                            escalated_rows=int(esc.item()), rows=rows)
+                        note = (f", block kernel {row['block_ms']:.3f} ms + "
+                                f"merge kernel {row['merge_ms']:.3f} ms, "
+                                f"escalated rows {row['escalated_rows']} of "
+                                f"{rows} ({row['escalated_rows'] / rows:.2e})")
                     sel_rows.append(row)
                     print(f"[select] {label}: max|dv|={err:.3g} ids_differ="
                           f"{n_diff} kernel {ms:.3f} ms, plain "
                           f"{row['plain_ms']:.3f} ms, addmm+torch.topk "
                           f"{lib_ms:.3f} ms (fp32 {lib['fp32']:.3f}, tf32 "
                           f"{lib['tf32']:.3f}), topk_only {topk_only_ms:.3f} "
-                          f"ms, bound {bound:.4f} ms ({by})"
-                          + (f", escalated blocks {row['escalated_blocks']}"
-                             if name == "memory_topk_resident" else ""),
-                          flush=True)
+                          f"ms, bound {bound:.4f} ms ({by}){note}", flush=True)
                     if name == "memory_topk" and n == N_QUERIES:
                         sel = (vals, idx)
 
+            if "memory_topk" not in names:
+                continue
             vals, idx = sel
             for k_obj in (1, 2):
                 mv = mv2[:k_obj].contiguous()
@@ -585,8 +644,13 @@ def main() -> int:
         for line in build.ptxas_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
+    hmma = hmma_count(build, "memory_topk_sort")
+    print("[sass] memory_topk_sort: " + (
+        "cuobjdump not found" if hmma is None else
+        f"{hmma} HMMA instructions (tensor-core scoring of bf16 keys "
+        f"{'present' if hmma else 'absent'})"), flush=True)
 
-    results = {"card": card, "build_s": build_s}
+    results = {"card": card, "build_s": build_s, "sort_hmma": hmma}
     kernel_phases(torch, results)
     entry_launches = entry_phase(torch, results)
     launches = engine_phase(torch, results, card)

@@ -1,5 +1,5 @@
-// Exact top-k selection by per-block sort and a merge of sorted lists
-// (sm_90a).
+// Exact top-k selection by pruning each bank block's scores to a few
+// candidates, sorting those, and merging the blocks' sorted lists (sm_90a).
 //
 // Replaces eva_vos_tpu/kernels/memory_topk.py:_kernel (with _merge_topk),
 // reached through pallas_memory_topk(method="sort").  The same function and
@@ -8,29 +8,45 @@
 // softmax weights (or, with raw = 1, raw scores); slots left over when
 // valid < top_k hold the score -1e30 (weight exactly 0) and id 0.
 //
-// What bounds it: the N x valid x CK products; the sorting networks come
-// next.
+// What bounds it: the scoring of each (16-query, 2,048-token) block on the
+// FP32 units (2 M FMA a block) and the pruning pass that follows it; the
+// bytes (each query and key read once) and the tensor-core rate are far
+// below both.  Only ~k of a row's 2,048 scores can reach the output, so no
+// row is sorted whole: a full sort per row was the previous design's cost.
 //
 // Design.  The TPU kernel runs lax.top_k on each bank block's scores and
 // merges the block's sorted top k into a running sorted list, incumbent
-// first on ties.  Here each candidate is one 64-bit key: the score's bits,
-// mapped so that unsigned order is float order, in the high word and ~id in
-// the low word, so that one unsigned comparison is the (score desc, id asc)
-// order and a sorting network over keys keeps lax.top_k's tie rule exactly.
-// A dead token's key is 0, below every live one.
+// first on ties.  Here a candidate is one 64-bit key: the score's bits,
+// mapped so that unsigned order is float order (ord), in the high word and
+// ~id in the low word, so that one unsigned comparison is the (score desc,
+// id asc) order and keys are distinct.  A dead token's ord is 0, so its key
+// is below 2^32 and below every live one.
 //
-//  1. topk_sort_block_kernel: grid (tiles of 8 queries) x (live 2,048-token
+//  1. topk_sort_block_kernel: grid (tiles of 16 queries) x (live 2,048-token
 //     bank blocks; blocks past `valid` are never launched).  The block
-//     scores its tile (score_block in topk_common.cuh) into keys in shared
-//     memory (8 x 2,048 x 8 B = 128 KB) and sorts each query's 2,048 keys to
-//     their top k2 (k rounded up to a power of two, at least 64) with
-//     bitonic networks: runs of 64 keys are sorted in registers (32 keys a
-//     thread, the last stage across a lane pair by shuffles); then each row
-//     is halved until one run is left: two neighbouring runs, one sorted
-//     each way, become their elementwise maximum, which holds the larger k2
-//     of the two as a bitonic sequence, and a bitonic merge sorts it.  The
-//     first k keys go to the query's list b of a buffer [N, n_live, k] in
-//     device memory.
+//     scores its tile into shared memory as ords (16 x 2,048 x 4 B = 128 KB;
+//     the id is the column), then warp w selects query w's row:
+//     a. threshold: column c belongs to group c mod G (G = 128, 256 or 512
+//        for k <= 64, 128, 256), so lane l's 64 columns fall in its own
+//        G / 32 groups; the warp sorts the G group maxima (a bitonic network
+//        in registers and shuffles) and takes the k-th, tau.  The k largest
+//        maxima are k distinct keys, so tau is at most the row's k-th key and
+//        "key >= tau" keeps the exact top k.  tau is raised to 2^32, so no
+//        dead key is admitted and a row with fewer than k live keys keeps
+//        all of them; groups strided across the columns keep a block that
+//        ends mid-way at G live groups.
+//     b. compaction: keys >= tau go to the row's candidate list in shared
+//        memory (512 keys), placed by warp ballot and popc.  For random
+//        scores ~1.2 k survive (62 at k = 50).
+//     c. escalation, exact: a row with more than 512 survivors (its winners
+//        packed into fewer than k groups) bisects the key range between tau
+//        and its largest key, counting keys at or above the midpoint, until
+//        k to 512 keys are left (keys are distinct, so a count never jumps
+//        by more than one), and compacts again.  It adds one to
+//        `escalations` when that is given.
+//     d. the candidates (padded with 0 to a power of two, at least
+//        max(k, 64)) are sorted by the warp in registers, and the first k go
+//        to the query's list b of a buffer [N, n_live, k] in device memory.
 //  2. topk_sort_merge_kernel: one warp per query merges its n_live sorted
 //     lists: lane l holds the heads of lists l, l + 32, ...; each output
 //     slot is the warp's largest head (one shuffle reduction of 64-bit
@@ -43,20 +59,32 @@ namespace {
 
 using namespace topk;
 
-constexpr int kQT = 8;                  // queries per block
-constexpr int kBlk = 2048;              // bank tokens per block (block_m)
-constexpr int kThreads1 = 512;
-constexpr int kMergeWarps = 8;
+using u64 = unsigned long long;
 
-__device__ __forceinline__ unsigned long long pack(float v, int id) {
+constexpr int kQT = 16;                  // queries per block, one per warp
+constexpr int kBlk = 2048;               // bank tokens per block (block_m)
+constexpr int kThreads1 = 32 * kQT;      // 512
+constexpr int kCols = kBlk / 32;         // columns a lane owns: 64
+// Words per row of the score tile: rows 8 words apart in the banks, so that
+// a quarter warp storing two columns of four rows hits 32 distinct banks.
+constexpr int kRowStride = kBlk + 8;
+constexpr int kCap = 512;                // candidate list of a row
+constexpr u64 kLiveFloor = 1ull << 32;   // the least live key
+constexpr int kMergeWarps = 8;
+constexpr unsigned kFull = 0xffffffffu;
+
+static_assert(kCols == 64, "a lane owns columns lane + 32 i, i < 64");
+
+__device__ __forceinline__ unsigned ord_of(float v) {
   const unsigned u = __float_as_uint(v);
-  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(ord) << 32) |
-         static_cast<unsigned>(~id);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ void unpack(unsigned long long key, float& v,
-                                       int& id) {
+__device__ __forceinline__ u64 key_of(unsigned ord, int id) {
+  return (static_cast<u64>(ord) << 32) | static_cast<unsigned>(~id);
+}
+
+__device__ __forceinline__ void unpack(u64 key, float& v, int& id) {
   if (key == 0ull) {  // dead
     v = kNegInf;
     id = 0;
@@ -67,201 +95,239 @@ __device__ __forceinline__ void unpack(unsigned long long key, float& v,
   id = static_cast<int>(~static_cast<unsigned>(key));
 }
 
-// Keys of the block's rows [kQT][kBlk] sit in shared memory slot-major:
-// logical key L (row L / kBlk) is thread L / 32's slot L % 32, at
-// (L % 32) * kPad + L / 32.  A thread's 32 slots are then read and written
-// by the warp from consecutive addresses, and the scoring threads' writes
-// (consecutive L) are two-way bank conflicts (kPad is odd).
-constexpr int kPad = kQT * kBlk / 32 + 1;  // 513
-constexpr int kLgBlk = 11;
-constexpr int kRun = 64;                   // keys a thread pair sorts
-
-static_assert(kQT * kBlk == 32 * kThreads1, "32 keys per thread");
-static_assert((1 << kLgBlk) == kBlk, "kLgBlk");
-
-__device__ __forceinline__ int slot_addr(int l) {
-  return (l & 31) * kPad + (l >> 5);
-}
-
-struct KeyTile {
-  unsigned long long* k;  // slot-major, see slot_addr
-  int lo;
+struct OrdTile {
+  unsigned* s;  // [kQT][kRowStride]
   __device__ void operator()(int qq, int j, float v) {
-    k[slot_addr(qq * kBlk + j)] = pack(v, lo + j);
+    s[qq * kRowStride + j] = ord_of(v);
   }
-  __device__ void dead(int qq, int j) { k[slot_addr(qq * kBlk + j)] = 0ull; }
+  __device__ void dead(int qq, int j) { s[qq * kRowStride + j] = 0u; }
 };
 
-// Order x, y descending (desc) or ascending.
-__device__ __forceinline__ void cmp_swap(unsigned long long& x,
-                                         unsigned long long& y, bool desc) {
+__device__ __forceinline__ void cmp_swap(u64& x, u64& y, bool desc) {
   if ((x < y) == desc) {
-    const unsigned long long t = x;
+    const u64 t = x;
     x = y;
     y = t;
   }
 }
 
-// One step of a bitonic network over kQT rows of 2^lg keys each: pairs
-// (a, a + stride) of each row, descending where (a & dir_bit) == 0.  Keys
-// at slot-major addresses (slot_addr) or row-major ones.
-__device__ __forceinline__ void bitonic_step(unsigned long long* keys, int lg,
-                                             int stride, int dir_bit,
-                                             bool slot_major) {
-  const int pairs_lg = lg - 1;
-  for (int p = threadIdx.x; p < (kQT << pairs_lg); p += kThreads1) {
-    const int r = p >> pairs_lg;
-    const int i = p & ((1 << pairs_lg) - 1);
-    const int a = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
-    const int la = (r << lg) + a;
-    const int ia = slot_major ? slot_addr(la) : la;
-    const int ib = slot_major ? slot_addr(la + stride) : la + stride;
-    unsigned long long x = keys[ia];
-    unsigned long long y = keys[ib];
-    cmp_swap(x, y, (a & dir_bit) == 0);
-    keys[ia] = x;
-    keys[ib] = y;
+// Bitonic sort, descending, of the warp's 32 R keys: key e = 32 r + lane is
+// v[r] of that lane.  Strides of 32 and more pair registers of one lane,
+// smaller ones pair lanes by shuffles.
+template <int R>
+__device__ __forceinline__ void warp_sort_desc(u64* v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32 * R; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {
+        const int rs = stride >> 5;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if ((r & rs) == 0) cmp_swap(v[r], v[r + rs], ((32 * r) & size) == 0);
+        }
+      } else {
+        const bool lower = (lane & stride) == 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const u64 o = __shfl_xor_sync(kFull, v[r], stride);
+          const bool desc = ((32 * r + lane) & size) == 0;
+          v[r] = (lower == desc) ? (o > v[r] ? o : v[r]) : (o < v[r] ? o : v[r]);
+        }
+      }
+    }
   }
-  __syncthreads();
+}
+
+// Key e = 32 r + lane of the warp's sorted keys v.
+template <int R>
+__device__ __forceinline__ u64 warp_key_at(const u64* v, int e) {
+  u64 x = 0ull;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r == (e >> 5)) x = v[r];
+  }
+  return __shfl_sync(kFull, x, e & 31);
+}
+
+// tau = max(the k-th largest of the row's 32 GPL group maxima, kLiveFloor),
+// and the row's largest key.
+template <int GPL>
+__device__ __forceinline__ void group_threshold(const unsigned* row, int lo,
+                                                int top_k, u64& tau,
+                                                u64& top) {
+  const int lane = threadIdx.x & 31;
+  u64 m[GPL];
+#pragma unroll
+  for (int j = 0; j < GPL; ++j) m[j] = 0ull;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int c = lane + 32 * i;  // group c mod 32 GPL: this lane's i % GPL
+    const u64 key = key_of(row[c], lo + c);
+    m[i % GPL] = key > m[i % GPL] ? key : m[i % GPL];
+  }
+  warp_sort_desc<GPL>(m);
+  const u64 t = warp_key_at<GPL>(m, top_k - 1);
+  tau = t > kLiveFloor ? t : kLiveFloor;
+  top = __shfl_sync(kFull, m[0], 0);
+}
+
+// Keys of the row >= tau, in column order, to cand[0, min(count, kCap));
+// returns their count.
+__device__ __forceinline__ int compact(const unsigned* row, int lo, u64 tau,
+                                       u64* cand) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;
+#pragma unroll 8
+  for (int i = 0; i < kCols; ++i) {
+    const int c = lane + 32 * i;
+    const u64 key = key_of(row[c], lo + c);
+    const bool in = key >= tau;
+    const unsigned ballot = __ballot_sync(kFull, in);
+    const int p = count + __popc(ballot & below);
+    if (in && p < kCap) cand[p] = key;
+    count += __popc(ballot);
+  }
+  return count;
+}
+
+__device__ __forceinline__ int count_at_least(const unsigned* row, int lo,
+                                              u64 t) {
+  const int lane = threadIdx.x & 31;
+  unsigned c = 0;
+#pragma unroll 8
+  for (int i = 0; i < kCols; ++i) {
+    c += key_of(row[lane + 32 * i], lo + lane + 32 * i) >= t;
+  }
+  return static_cast<int>(__reduce_add_sync(kFull, c));
+}
+
+// Sort the row's `count` candidates (R * 32 >= max(count, top_k)) and
+// write the first top_k keys to out.
+template <int R>
+__device__ __forceinline__ void sort_candidates(const u64* cand, int count,
+                                                int top_k, u64* out) {
+  const int lane = threadIdx.x & 31;
+  u64 v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = 32 * r + lane;
+    v[r] = e < count ? cand[e] : 0ull;
+  }
+  warp_sort_desc<R>(v);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = 32 * r + lane;
+    if (e < top_k) out[e] = v[r];
+  }
+}
+
+// The warp's row of the score tile -> its exact top_k keys, sorted, in out.
+__device__ __forceinline__ void select_row(const unsigned* row, int lo,
+                                           int top_k, u64* cand, u64* out,
+                                           int* escalations) {
+  u64 tau, top;
+  if (top_k <= 64) {
+    group_threshold<4>(row, lo, top_k, tau, top);
+  } else if (top_k <= 128) {
+    group_threshold<8>(row, lo, top_k, tau, top);
+  } else {
+    group_threshold<16>(row, lo, top_k, tau, top);
+  }
+  int count = compact(row, lo, tau, cand);
+  if (count > kCap) {
+    // count(a) > kCap >= top_k > count(b): b - a >= 2, so mid lies strictly
+    // between them and the loop ends at a count in [top_k, kCap]
+    u64 a = tau, b = top + 1;
+    for (;;) {
+      const u64 mid = a + ((b - a) >> 1);
+      const int c = count_at_least(row, lo, mid);
+      if (c < top_k) {
+        b = mid;
+      } else {
+        a = mid;
+        if (c <= kCap) break;
+      }
+    }
+    __syncwarp();
+    count = compact(row, lo, a, cand);
+    if ((threadIdx.x & 31) == 0 && escalations != nullptr) {
+      atomicAdd(escalations, 1);
+    }
+  }
+  __syncwarp();
+  const int need = max(count, top_k);
+  if (need <= 64) {
+    sort_candidates<2>(cand, count, top_k, out);
+  } else if (need <= 128) {
+    sort_candidates<4>(cand, count, top_k, out);
+  } else if (need <= 256) {
+    sort_candidates<8>(cand, count, top_k, out);
+  } else {
+    sort_candidates<16>(cand, count, top_k, out);
+  }
 }
 
 template <typename T, int CK>
 __global__ void __launch_bounds__(kThreads1, 1)
 topk_sort_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
-                       unsigned long long* __restrict__ part, int n,
-                       int valid, int top_k) {
+                       u64* __restrict__ part, int n, int valid, int top_k,
+                       int* __restrict__ escalations) {
   extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                       // [kQT][CK]
+  float* s_q = smem;                                        // [kQT][CK]
+  OrdTile tile{reinterpret_cast<unsigned*>(s_q + kQT * CK)};
+  u64* cand = reinterpret_cast<u64*>(tile.s + kQT * kRowStride);  // [kQT][kCap]
   const int q0 = blockIdx.x * kQT;
   const int lo = blockIdx.y * kBlk;
-  unsigned long long* src =
-      reinterpret_cast<unsigned long long*>(s_q + kQT * CK);  // [32][kPad]
-  unsigned long long* dst = src + 32 * kPad;  // [kQT][kBlk / 2] row-major
-  KeyTile tile{src, lo};
   score_block<T, CK, kQT, kBlk, kThreads1>(qk, mk, n, q0, lo,
                                            min(lo + kBlk, valid), s_q, tile);
 
-  // 1. runs of 64 keys sorted, descending for even runs and ascending for
-  // odd ones (bitonic sort, direction bit 64), in registers: thread t holds
-  // keys [32 t, 32 t + 32) and sorts them with sizes 2..32; the size-64
-  // stage pairs it with thread t ^ 1 (the next lane) by shuffles.
-  const int t = threadIdx.x;
-  unsigned long long v[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) v[j] = src[j * kPad + t];
-#pragma unroll
-  for (int size = 2; size <= 2 * 32; size <<= 1) {
-    // direction of key 32 t + j: bit `size` of it
-    const bool odd_t = size == 32 ? (t & 1) : size == 64 ? ((t >> 1) & 1) : 0;
-    if (size == 64) {  // stride 32: the pair straddles threads t, t ^ 1
-      const bool keep_max = ((t & 1) == 0) == !odd_t;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const unsigned long long o = __shfl_xor_sync(0xffffffffu, v[j], 1);
-        v[j] = keep_max ? (o > v[j] ? o : v[j]) : (o < v[j] ? o : v[j]);
-      }
-    }
-#pragma unroll
-    for (int stride = (size == 64 ? 32 : size) >> 1; stride > 0;
-         stride >>= 1) {
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        if ((j & stride) == 0) {
-          const bool desc = size >= 32 ? !odd_t : (j & size) == 0;
-          cmp_swap(v[j], v[j + stride], desc);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 32; ++j) src[j * kPad + t] = v[j];
-  __syncthreads();
-
-  // runs of k2 >= top_k (a power of two): sizes past 64 in shared memory
-  const int lg_k2 = max(6, 32 - __clz(top_k - 1));
-  const int k2 = 1 << lg_k2;
-  for (int size = 2 * kRun; size <= k2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      bitonic_step(src, kLgBlk, stride, size, true);
-    }
-  }
-
-  // 2. halve each row until one run is left: runs 2g (descending) and
-  // 2g + 1 (ascending) -> their elementwise maximum, a bitonic sequence
-  // holding the larger k2 of the two, which a bitonic merge sorts (even
-  // runs descending, odd ones ascending; the last run descending).
-  bool slot_major = true;
-  for (int lg = kLgBlk; lg > lg_k2; --lg) {
-    const int half = 1 << (lg - 1);
-    for (int e = threadIdx.x; e < kQT * half; e += kThreads1) {
-      const int r = e >> (lg - 1);
-      const int j = e & (half - 1);
-      const int la = (r << lg) + ((j >> lg_k2) << (lg_k2 + 1)) + (j & (k2 - 1));
-      const unsigned long long x = src[slot_major ? slot_addr(la) : la];
-      const unsigned long long y =
-          src[slot_major ? slot_addr(la + k2) : la + k2];
-      dst[e] = x > y ? x : y;
-    }
-    __syncthreads();
-    for (int stride = k2 >> 1; stride > 0; stride >>= 1) {
-      bitonic_step(dst, lg - 1, stride, k2, false);
-    }
-    unsigned long long* tmp = src;
-    src = dst;
-    dst = tmp;
-    slot_major = false;
-  }
-
-  const size_t lists = gridDim.y;
-  for (int e = threadIdx.x; e < kQT * top_k; e += kThreads1) {
-    const int r = e / top_k;
-    const int j = e % top_k;
-    if (q0 + r < n) {
-      const int l = (r << lg_k2) + j;
-      part[((q0 + r) * lists + blockIdx.y) * top_k + j] =
-          src[slot_major ? slot_addr(l) : l];
-    }
-  }
+  const int warp = threadIdx.x >> 5;
+  const int q = q0 + warp;
+  if (q >= n) return;
+  u64* out = part + (static_cast<size_t>(q) * gridDim.y + blockIdx.y) * top_k;
+  select_row(tile.s + warp * kRowStride, lo, top_k, cand + warp * kCap, out,
+             escalations);
 }
 
 __global__ void __launch_bounds__(32 * kMergeWarps)
-topk_sort_merge_kernel(const unsigned long long* __restrict__ part,
-                       float* __restrict__ out_v, int* __restrict__ out_i,
-                       int n, int top_k, int n_lists, int raw) {
+topk_sort_merge_kernel(const u64* __restrict__ part, float* __restrict__ out_v,
+                       int* __restrict__ out_i, int n, int top_k, int n_lists,
+                       int raw) {
   extern __shared__ int heads[];  // [kMergeWarps][n_lists]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q = blockIdx.x * kMergeWarps + warp;
   if (q >= n) return;  // whole warps
   int* head = heads + warp * n_lists;
-  const unsigned long long* lists =
-      part + static_cast<size_t>(q) * n_lists * top_k;
+  const u64* lists = part + static_cast<size_t>(q) * n_lists * top_k;
   float* ov = out_v + static_cast<size_t>(q) * top_k;
   int* oi = out_i + static_cast<size_t>(q) * top_k;
 
   for (int b = lane; b < n_lists; b += 32) head[b] = 0;
   // this lane's largest head and its list (-1: none left)
-  auto best_head = [&](unsigned long long& key, int& list) {
+  auto best_head = [&](u64& key, int& list) {
     key = 0ull;
     list = -1;
     for (int b = lane; b < n_lists; b += 32) {
       const int h = head[b];
-      const unsigned long long k =
-          h < top_k ? lists[static_cast<size_t>(b) * top_k + h] : 0ull;
+      const u64 k = h < top_k ? lists[static_cast<size_t>(b) * top_k + h] : 0ull;
       if (list < 0 || k > key) {
         key = k;
         list = b;
       }
     }
   };
-  unsigned long long mine;
+  u64 mine;
   int list;
   best_head(mine, list);
   for (int t = 0; t < top_k; ++t) {
-    unsigned long long win = mine;
+    u64 win = mine;
 #pragma unroll
     for (int off = 16; off; off >>= 1) {
-      const unsigned long long o = __shfl_xor_sync(0xffffffffu, win, off);
+      const u64 o = __shfl_xor_sync(kFull, win, off);
       win = o > win ? o : win;
     }
     if (win == 0ull) {  // only dead keys left
@@ -282,14 +348,14 @@ topk_sort_merge_kernel(const unsigned long long* __restrict__ part,
 
 size_t block_smem_bytes(int ck) {
   return sizeof(float) * static_cast<size_t>(kQT) * ck +
-         sizeof(unsigned long long) *
-             (32 * static_cast<size_t>(kPad) + kQT * kBlk / 2);
+         sizeof(unsigned) * static_cast<size_t>(kQT) * kRowStride +
+         sizeof(u64) * static_cast<size_t>(kQT) * kCap;
 }
 
 template <typename T, int CK>
-int launch(const void* qk, const void* mk, unsigned long long* part,
-           float* out_v, int* out_i, int n, int valid, int top_k, int n_live,
-           int raw, cudaStream_t stream) {
+int launch(const void* qk, const void* mk, u64* part, float* out_v,
+           int* out_i, int n, int valid, int top_k, int n_live, int raw,
+           int* escalations, cudaStream_t stream) {
   const size_t smem = block_smem_bytes(CK);
   cudaError_t err = cudaFuncSetAttribute(
       topk_sort_block_kernel<T, CK>,
@@ -298,7 +364,7 @@ int launch(const void* qk, const void* mk, unsigned long long* part,
   const dim3 grid((n + kQT - 1) / kQT, n_live);
   topk_sort_block_kernel<T, CK><<<grid, kThreads1, smem, stream>>>(
       static_cast<const T*>(qk), static_cast<const T*>(mk), part, n, valid,
-      top_k);
+      top_k, escalations);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t merge_smem = sizeof(int) * kMergeWarps * n_live;
@@ -319,25 +385,28 @@ extern "C" {
 // qk [n, ck], mk [m >= valid, ck] row-major, 16-byte aligned, fp32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1), ck = 64; part [n, n_live, top_k]
 // 64-bit scratch, n_live = max(1, ceil(valid / 2048)) <= 6,000; out_v/out_i
-// [n, top_k]; 1 <= top_k <= 256.  Returns a cudaError_t code.
+// [n, top_k]; 1 <= top_k <= 256.  escalations: null, or one int32 on the
+// device that counts the (query, bank block) rows that escalated.  Returns
+// a cudaError_t code.
 int memory_topk_sort_launch(const void* qk, const void* mk, void* part,
                             void* out_v, void* out_i, int n, int valid, int ck,
                             int top_k, int n_live, int raw, int is_bf16,
-                            void* stream) {
+                            void* stream, void* escalations) {
   if (n <= 0) return 0;
   if (ck != 64 || top_k < 1 || top_k > 256 || n_live > 6000 ||
       n_live != (valid > kBlk ? (valid + kBlk - 1) / kBlk : 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  unsigned long long* p = static_cast<unsigned long long*>(part);
+  u64* p = static_cast<u64*>(part);
   float* ov = static_cast<float*>(out_v);
   int* oi = static_cast<int*>(out_i);
+  int* e = static_cast<int*>(escalations);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return launch<__nv_bfloat16, 64>(qk, mk, p, ov, oi, n, valid, top_k,
-                                     n_live, raw, s);
+                                     n_live, raw, e, s);
   }
-  return launch<float, 64>(qk, mk, p, ov, oi, n, valid, top_k, n_live, raw,
+  return launch<float, 64>(qk, mk, p, ov, oi, n, valid, top_k, n_live, raw, e,
                            s);
 }
 

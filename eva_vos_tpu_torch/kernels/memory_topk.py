@@ -17,8 +17,9 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
   (``_kernel_iter``), per-block k-pass extraction into a candidate buffer,
   then one extraction, kernel ``csrc/memory_topk_iter.cu``;
 * :func:`topk_select_sort` — ``pallas_memory_topk(method="sort")``
-  (``_kernel``), per-block bitonic sort, then a merge of the sorted lists,
-  kernel ``csrc/memory_topk_sort.cu``;
+  (``_kernel``), per-block pruning to a few candidates and a sort of those,
+  then a merge of the sorted lists, kernel ``csrc/memory_topk_sort.cu``;
+  :func:`sort_prune_threshold` states its pruning rule for the tests;
 * :func:`select_topk` — ``pallas_memory_topk``: a method name to one of them,
   'iterative' by default as there.
 
@@ -96,7 +97,7 @@ def _iter_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _sort_lib() -> ctypes.CDLL:
     return _bind("memory_topk_sort", "memory_topk_sort_launch",
-                 [_P] * 5 + [_I] * 7 + [_P])
+                 [_P] * 5 + [_I] * 7 + [_P, _P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,6 +127,13 @@ def _check_selection(qk, mk, valid_tokens, top_k: int) -> int:
     if not 0 < top_k <= min(m, 256):
         raise ValueError(f"top_k={top_k} must be in [1, min(M={m}, 256)]")
     return m if valid_tokens is None else max(0, min(int(valid_tokens), m))
+
+
+def _check_counter(escalations, qk):
+    if escalations is not None and (
+            escalations.device != qk.device
+            or escalations.dtype != torch.int32 or escalations.numel() != 1):
+        raise ValueError("escalations must be one int32 on qk's device")
 
 
 def _on_cpu(qk, mk) -> bool:
@@ -198,10 +206,7 @@ def topk_select_resident(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
-    if escalations is not None and (
-            escalations.device != qk.device
-            or escalations.dtype != torch.int32 or escalations.numel() != 1):
-        raise ValueError("escalations must be one int32 on qk's device")
+    _check_counter(escalations, qk)
     vals, idx = _transposed_outputs(qk, top_k)
     lib = _resident_lib()
     status = lib.memory_topk_resident_launch(
@@ -285,13 +290,18 @@ def topk_select_iter(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
 
 
 def topk_select_sort(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
-                     top_k: int, return_raw: bool = False):
-    """Top-k selection by a bitonic sort of each bank block's scores and a
-    merge of the blocks' sorted top-k lists; outputs and plain version as
-    :func:`topk_select_iter`."""
+                     top_k: int, return_raw: bool = False,
+                     escalations: torch.Tensor | None = None):
+    """Top-k selection by pruning each bank block's scores to the keys at or
+    above :func:`sort_prune_threshold`, sorting those, and merging the
+    blocks' sorted top-k lists; outputs and plain version as
+    :func:`topk_select_iter`.  ``escalations``, a CUDA int32 tensor of one
+    element, gains the number of (query, bank block) rows whose survivors
+    overflowed the kernel's candidate list and took its exact bisection."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
+    _check_counter(escalations, qk)
     n, n_live = qk.shape[0], _live_blocks(valid)
     part = torch.empty((n, n_live, top_k), dtype=torch.int64,
                        device=qk.device)
@@ -300,10 +310,47 @@ def topk_select_sort(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     status = lib.memory_topk_sort_launch(
         qk.data_ptr(), mk.data_ptr(), part.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), n, valid, _CK, top_k, n_live,
-        int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk))
+        int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk),
+        None if escalations is None else escalations.data_ptr())
     build.check("memory_topk_sort", lib, status)
     topk_select_sort.launches += 1
     return out_v, out_i
+
+
+SORT_CAPACITY = 512  # memory_topk_sort.cu's kCap: candidates a row keeps
+
+
+def sort_prune_groups(top_k: int) -> int:
+    """Groups of a bank block's row in the sort kernel's pruning rule."""
+    return 128 if top_k <= 64 else 256 if top_k <= 128 else 512
+
+
+def sort_keys(scores: torch.Tensor, ids: torch.Tensor,
+              live: torch.Tensor) -> torch.Tensor:
+    """The sort kernel's 64-bit keys (ordered score bits, ~id) of fp32
+    ``scores`` [..., B], as int64 shifted by -2^63 so that signed order is
+    the kernel's unsigned order: (score desc, id asc), distinct for distinct
+    ids.  A dead column (``live`` False) has the score bits 0, below every
+    live key."""
+    u = scores.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    order = torch.where(u >= 2 ** 31, u ^ 0xFFFFFFFF, u | 2 ** 31)
+    order = torch.where(live, order, torch.zeros_like(order))
+    low = ~ids.to(torch.int64) & 0xFFFFFFFF
+    return (order - 2 ** 31) * 2 ** 32 + low
+
+
+def sort_prune_threshold(keys: torch.Tensor, top_k: int,
+                         groups: int | None = None) -> torch.Tensor:
+    """Plain statement of the sort kernel's pruning threshold tau [...] for
+    rows of keys [..., B] (:func:`sort_keys`): the top_k-th largest of the
+    maxima of the groups {c : c mod G == g} (G = ``groups``, by default the
+    kernel's :func:`sort_prune_groups`), raised to the least live key.  The
+    top_k largest maxima are top_k distinct keys, so the keys >= tau hold
+    the row's exact top_k."""
+    groups = groups or sort_prune_groups(top_k)
+    maxima = keys.unflatten(-1, (-1, groups)).amax(-2)
+    tau = maxima.topk(top_k, dim=-1).values[..., -1]
+    return tau.clamp(min=-2 ** 63 + 2 ** 32)
 
 
 for _fn in (topk_select, topk_select_chunked, topk_select_resident,

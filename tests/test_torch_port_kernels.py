@@ -141,13 +141,34 @@ FRAME_TOKENS = 30 * 54  # key tokens of one 480x864 frame
 def _assert_same_selection(vals, idx, ref_vals, ref_idx, atol):
     """Scores within atol of the plain version's; ids equal except where
     the plain version's neighbouring scores lie within atol (a near-tie
-    that summing in another order may swap)."""
-    torch.testing.assert_close(vals, ref_vals, rtol=0, atol=atol)
+    that summing in another order may swap).  The plain version may give
+    one slot more than the kernel, so that a near-tie across the last slot
+    counts too."""
+    k = idx.shape[1]
+    torch.testing.assert_close(vals, ref_vals[:, :k], rtol=0, atol=atol)
     close = (ref_vals[:, :-1] - ref_vals[:, 1:]).abs() <= atol
     tied = torch.zeros_like(idx, dtype=torch.bool)
-    tied[:, :-1] |= close
-    tied[:, 1:] |= close
-    assert not ((idx != ref_idx) & ~tied).any()
+    tied[:, :close.shape[1]] |= close[:, :k]
+    tied[:, 1:] |= close[:, :k - 1]
+    assert not ((idx != ref_idx[:, :k]) & ~tied).any()
+
+
+# the sort kernel's count of rows that took its exact escalation
+_SORT_ESCALATIONS = {}
+
+
+def _escalation_counter(method, device):
+    """The sort kernel's escalations argument (a fresh zero), or none."""
+    if method != "sort":
+        return {}
+    _SORT_ESCALATIONS["n"] = torch.zeros(1, dtype=torch.int32, device=device)
+    return {"escalations": _SORT_ESCALATIONS["n"]}
+
+
+def _assert_no_escalation(method):
+    """Random banks never overflow the sort kernel's candidate lists."""
+    if method == "sort":
+        assert int(_SORT_ESCALATIONS["n"]) == 0
 
 
 @pytest.mark.cuda
@@ -165,12 +186,14 @@ def test_row_selection_kernels_at_bank_fills(cuda, method, dtype, n, fill):
         dtype)
     valid = fill * FRAME_TOKENS
     before = fn.launches
-    vals, idx = fn(qk, mk, valid, 50, return_raw=True)
+    vals, idx = fn(qk, mk, valid, 50, return_raw=True,
+                   **_escalation_counter(method, cuda))
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert vals.shape == idx.shape == (n, 50) and idx.dtype == torch.int32
     pv, pi = topk_scores(mk, qk, 50, valid)
     _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
+    _assert_no_escalation(method)
 
 
 @pytest.mark.cuda
@@ -188,8 +211,10 @@ def test_row_selection_kernels_partial_fills(cuda, method, dtype, valid,
     g = torch.Generator(device=cuda).manual_seed(valid)
     qk = torch.randn((300, 64), generator=g, device=cuda).to(dtype)
     mk = torch.randn((5000, 64), generator=g, device=cuda).to(dtype)
-    vals, idx = fn(qk, mk, valid, top_k, return_raw=True)
+    vals, idx = fn(qk, mk, valid, top_k, return_raw=True,
+                   **_escalation_counter(method, cuda))
     assert vals.shape == idx.shape == (300, top_k)
+    _assert_no_escalation(method)
     pv, pi = topk_scores(mk, qk, top_k, valid)
     live = min(valid, top_k)
     _assert_same_selection(vals[:, :live], idx[:, :live], pv[:, :live],
@@ -220,6 +245,53 @@ def test_row_selection_kernels_exact_ties(cuda, method, dtype, top_k):
     assert torch.equal(idx, pi.to(torch.int32))
     np.testing.assert_array_equal(idx.cpu().numpy().T,
                                   _oracle_topk(qk, mk, 3000, top_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [50, 256])
+def test_sort_kernel_identical_keys(cuda, dtype, top_k):
+    """Every token the same key: all scores of a row tie, so its keys differ
+    only in their ids.  Each group's maximum is its lowest id, so the
+    threshold admits exactly the k lowest ids: no row escalates, and the
+    ids are the lowest, as the plain version's."""
+    rng = np.random.default_rng(8)
+    mk = torch.from_numpy(np.tile(rng.standard_normal((1, 64)), (5000, 1))
+                          .astype(np.float32)).to(cuda, dtype)
+    qk = torch.from_numpy(rng.standard_normal((45, 64)).astype(np.float32)
+                          ).to(cuda, dtype)
+    esc = torch.zeros(1, dtype=torch.int32, device=cuda)
+    _, idx = topk_select_sort(qk, mk, 4500, top_k, escalations=esc)
+    want = torch.arange(top_k, dtype=torch.int32, device=cuda)
+    assert torch.equal(idx, want.expand(45, top_k))
+    assert int(esc) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [50, 64, 100, 256])
+def test_sort_kernel_escalation(cuda, dtype, top_k):
+    """Winners packed into few groups: tokens with (t mod 128) < 40 lie near
+    every query and the rest far away, so the 40 of each 128 column groups
+    hold 640 keys of a block's row above the threshold, more than the
+    kernel's candidate list (512).  Every row of the first, full bank block
+    escalates to the exact bisection (the second block, 952 tokens, keeps
+    320 near tokens and fits); the result stays exact."""
+    rng = np.random.default_rng(9)
+    u = rng.standard_normal(64)
+    near = (np.arange(3000) % 128) < 40
+    mk = np.where(near[:, None], u, -u) + 0.1 * rng.standard_normal((3000, 64))
+    qk = u + 0.1 * rng.standard_normal((77, 64))
+    mk = torch.from_numpy(mk.astype(np.float32)).to(cuda, dtype)
+    qk = torch.from_numpy(qk.astype(np.float32)).to(cuda, dtype)
+    esc = torch.zeros(1, dtype=torch.int32, device=cuda)
+    vals, idx = topk_select_sort(qk, mk, 3000, top_k, return_raw=True,
+                                 escalations=esc)
+    assert int(esc) == 77
+    # 640 near tokens crowd each row's scores: compare up to near-ties,
+    # across the last slot too
+    pv, pi = topk_scores(mk, qk, top_k + 1, 3000)
+    _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
 
 
 @pytest.mark.cuda
