@@ -25,7 +25,11 @@
 //  1. topk_sort_block_kernel: grid (tiles of 16 queries) x (live 2,048-token
 //     bank blocks; blocks past `valid` are never launched).  The block
 //     scores its tile into shared memory as ords (16 x 2,048 x 4 B = 128 KB;
-//     the id is the column), then warp w selects query w's row:
+//     the id is the column): bf16 keys on the tensor cores (mma.sync
+//     m16n8k16, the 16 queries one A tile held in registers, keys staged by
+//     cp.async; score_block_mma below), fp32 keys on the FP32 units
+//     (score_block in topk_common.cuh), whose products stay exact where TF32
+//     would round them.  Then warp w selects query w's row:
 //     a. threshold: column c belongs to group c mod G (G = 128, 256 or 512
 //        for k <= 64, 128, 256), so lane l's 64 columns fall in its own
 //        G / 32 groups; the warp sorts the G group maxima (a bitonic network
@@ -53,6 +57,8 @@
 //     keys), and only the lane whose list it came from advances that list.
 //     It writes the row of scores, then the weights.
 
+#include <type_traits>
+
 #include "topk_common.cuh"
 
 namespace {
@@ -72,6 +78,13 @@ constexpr int kCap = 512;                // candidate list of a row
 constexpr u64 kLiveFloor = 1ull << 32;   // the least live key
 constexpr int kMergeWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
+// bf16 scoring: warp w scores tokens [128 w, 128 w + 128) of the block in
+// chunks of 8 (one n8 tile), staged through a ring of kStages chunks
+constexpr int kWarpToks = kBlk / kQT;        // 128
+constexpr int kChunk = 8;
+constexpr int kChunks = kWarpToks / kChunk;  // 16
+constexpr int kStages = 4;
+constexpr int kStageElems = kChunk * 64;     // bf16 of one staged chunk
 
 static_assert(kCols == 64, "a lane owns columns lane + 32 i, i < 64");
 
@@ -102,6 +115,146 @@ struct OrdTile {
   }
   __device__ void dead(int qq, int j) { s[qq * kRowStride + j] = 0u; }
 };
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes = 0
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 -> fp32.
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 of query q's key (channels c, c + 1), 0 past the last query.
+__device__ __forceinline__ unsigned query_pair(const __nv_bfloat16* qk, int q,
+                                               int n, int c) {
+  return q < n ? *reinterpret_cast<const unsigned*>(
+                     qk + static_cast<size_t>(q) * 64 + c)
+               : 0u;
+}
+
+// The bf16 counterpart of score_block: the ords of queries [q0, q0 + 16)
+// against tokens [lo, lo + kBlk) on the tensor cores.  The queries are one
+// m16 tile, held as A fragments for the whole block (four k16 steps of
+// CK = 64).  Warp w's 128 tokens pass through its ring `stage` of kStages
+// chunks of 8 token rows (128 B each, 16-byte unit u of row r at u ^ r, so
+// that both cp.async's stores and ldmatrix's reads hit distinct banks);
+// kStages - 1 chunks are in flight while one is scored.  A chunk is one n8
+// tile: two ldmatrix.x4 give its B fragments, four mma.sync its 16 x 8
+// dot products (bf16 products are exact in fp32, summed in the tensor
+// core's order); |k|^2 is an fp32 sum of the staged bf16 values (four lanes
+// a token, 16 channels each).  Ends with a barrier.
+__device__ __forceinline__ void score_block_mma(const __nv_bfloat16* qk,
+                                                const __nv_bfloat16* mk,
+                                                int n, int q0, int lo, int hi,
+                                                unsigned* tile,
+                                                __nv_bfloat16* stage) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int quad = lane & 3;
+  unsigned a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = 16 * kk + 2 * quad;
+    a[kk][0] = query_pair(qk, q0 + (lane >> 2), n, c);
+    a[kk][1] = query_pair(qk, q0 + (lane >> 2) + 8, n, c);
+    a[kk][2] = query_pair(qk, q0 + (lane >> 2), n, c + 8);
+    a[kk][3] = query_pair(qk, q0 + (lane >> 2) + 8, n, c + 8);
+  }
+  const int col0 = warp * kWarpToks;  // the warp's first column
+  stage += warp * kStages * kStageElems;
+  auto issue = [&](int ch) {
+    if (ch < kChunks) {
+      __nv_bfloat16* buf = stage + (ch % kStages) * kStageElems;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = (lane >> 3) + 4 * j;
+        const int unit = lane & 7;
+        const int tok = lo + col0 + ch * kChunk + row;
+        const bool live = tok < hi;
+        cp_async16(buf + row * 64 + ((unit ^ row) << 3),
+                   live ? mk + static_cast<size_t>(tok) * 64 + unit * 8 : mk,
+                   live ? 16 : 0);
+      }
+    }
+    cp_async_commit();  // an empty group past the last chunk
+  };
+#pragma unroll
+  for (int ch = 0; ch < kStages - 1; ++ch) issue(ch);
+  for (int ch = 0; ch < kChunks; ++ch) {
+    issue(ch + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const __nv_bfloat16* buf = stage + (ch % kStages) * kStageElems;
+    unsigned b[8];
+    const int r = lane & 7;  // the row this lane addresses for ldmatrix
+    ldmatrix_x4(b, buf + r * 64 + (((lane >> 3) ^ r) << 3));
+    ldmatrix_x4(b + 4, buf + r * 64 + ((((lane >> 3) + 4) ^ r) << 3));
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_bf16(d, a[kk], b[2 * kk], b[2 * kk + 1]);
+    // |k|^2: lane 4 t + u sums units 2 u, 2 u + 1 of row t
+    float sq = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[8];
+      load8(buf + (lane >> 2) * 64 + (((2 * quad + h) ^ (lane >> 2)) << 3), v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sq = fmaf(v[i], v[i], sq);
+    }
+    sq += __shfl_xor_sync(kFull, sq, 1);
+    sq += __shfl_xor_sync(kFull, sq, 2);
+    __syncwarp();  // the ring slot is free for the next issue
+    // this lane's columns: rows 2 quad, 2 quad + 1 of the chunk
+    const float sq0 = __shfl_sync(kFull, sq, 8 * quad);
+    const float sq1 = __shfl_sync(kFull, sq, 8 * quad + 4);
+    const int col = col0 + ch * kChunk + 2 * quad;
+    const bool live0 = lo + col < hi;
+    const bool live1 = lo + col + 1 < hi;
+    const float scale = sqrtf(64.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = (2.f * d[2 * h] - sq0) / scale + 0.f;
+      const float v1 = (2.f * d[2 * h + 1] - sq1) / scale + 0.f;
+      *reinterpret_cast<uint2*>(tile + ((lane >> 2) + 8 * h) * kRowStride +
+                                col) =
+          make_uint2(live0 ? ord_of(v0) : 0u, live1 ? ord_of(v1) : 0u);
+    }
+  }
+  __syncthreads();
+}
 
 __device__ __forceinline__ void cmp_swap(u64& x, u64& y, bool desc) {
   if ((x < y) == desc) {
@@ -275,14 +428,24 @@ __global__ void __launch_bounds__(kThreads1, 1)
 topk_sort_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
                        u64* __restrict__ part, int n, int valid, int top_k,
                        int* __restrict__ escalations) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                                        // [kQT][CK]
-  OrdTile tile{reinterpret_cast<unsigned*>(s_q + kQT * CK)};
-  u64* cand = reinterpret_cast<u64*>(tile.s + kQT * kRowStride);  // [kQT][kCap]
+  // [kQT][kRowStride] ords, then the bf16 staging ring [kQT warps][kStages
+  // chunks] or, once the tile is scored, the candidate lists [kQT][kCap],
+  // then the fp32 queries [kQT][CK]
+  extern __shared__ __align__(16) unsigned smem[];
+  OrdTile tile{smem};
+  u64* cand = reinterpret_cast<u64*>(smem + kQT * kRowStride);
+  float* s_q = reinterpret_cast<float*>(cand + kQT * kCap);
   const int q0 = blockIdx.x * kQT;
   const int lo = blockIdx.y * kBlk;
-  score_block<T, CK, kQT, kBlk, kThreads1>(qk, mk, n, q0, lo,
-                                           min(lo + kBlk, valid), s_q, tile);
+  const int hi = min(lo + kBlk, valid);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    static_assert(CK == 64, "score_block_mma takes four k16 steps");
+    score_block_mma(qk, mk, n, q0, lo, hi, tile.s,
+                    reinterpret_cast<__nv_bfloat16*>(cand));
+  } else {
+    score_block<T, CK, kQT, kBlk, kThreads1>(qk, mk, n, q0, lo, hi, s_q,
+                                             tile);
+  }
 
   const int warp = threadIdx.x >> 5;
   const int q = q0 + warp;
@@ -346,10 +509,16 @@ topk_sort_merge_kernel(const u64* __restrict__ part, float* __restrict__ out_v,
   if (!raw) warp_softmax_row(ov, top_k);
 }
 
+static_assert(sizeof(__nv_bfloat16) * kQT * kStages * kStageElems <=
+                  sizeof(u64) * kQT * kCap,
+              "the staging ring fits in the candidate lists' space");
+static_assert(kQT * kRowStride * sizeof(unsigned) % 16 == 0,
+              "16-byte aligned staging ring");
+
 size_t block_smem_bytes(int ck) {
-  return sizeof(float) * static_cast<size_t>(kQT) * ck +
-         sizeof(unsigned) * static_cast<size_t>(kQT) * kRowStride +
-         sizeof(u64) * static_cast<size_t>(kQT) * kCap;
+  return sizeof(unsigned) * static_cast<size_t>(kQT) * kRowStride +
+         sizeof(u64) * static_cast<size_t>(kQT) * kCap +
+         sizeof(float) * static_cast<size_t>(kQT) * ck;
 }
 
 template <typename T, int CK>
