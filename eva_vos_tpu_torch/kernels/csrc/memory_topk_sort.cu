@@ -8,11 +8,16 @@
 // softmax weights (or, with raw = 1, raw scores); slots left over when
 // valid < top_k hold the score -1e30 (weight exactly 0) and id 0.
 //
-// What bounds it: the scoring of each (16-query, 2,048-token) block on the
-// FP32 units (2 M FMA a block) and the pruning pass that follows it; the
-// bytes (each query and key read once) and the tensor-core rate are far
-// below both.  Only ~k of a row's 2,048 scores can reach the output, so no
-// row is sorted whole: a full sort per row was the previous design's cost.
+// What bounds it: not the device-memory bytes nor the tensor-core rate
+// (0.12 ms at fill 72, N = 8,100), but the block's L2 traffic and the row
+// passes after it.  Each 16-query block stages its bank block's 256 KB of
+// bf16 keys from L2: 7.6 GB at fill 72, about half of the kernel's time
+// (~2 ms at ~3.7 TB/s, measured by timing the scoring alone).  The rest is
+// the per-row threshold, compaction and ranking passes over 2,048 scores,
+// which run one warp a row at 16 warps an SM (the 197 KB of shared memory
+// allow one block an SM), so their shuffle and ballot chains are exposed.
+// No row is sorted whole: only ~k of its 2,048 keys can reach the output,
+// and a full per-row sort was the previous design's cost.
 //
 // Design.  The TPU kernel runs lax.top_k on each bank block's scores and
 // merges the block's sorted top k into a running sorted list, incumbent
@@ -31,26 +36,28 @@
 //     (score_block in topk_common.cuh), whose products stay exact where TF32
 //     would round them.  Then warp w selects query w's row:
 //     a. threshold: column c belongs to group c mod G (G = 128, 256 or 512
-//        for k <= 64, 128, 256), so lane l's 64 columns fall in its own
-//        G / 32 groups; the warp sorts the G group maxima (a bitonic network
-//        in registers and shuffles) and takes the k-th, tau.  The k largest
-//        maxima are k distinct keys, so tau is at most the row's k-th key and
-//        "key >= tau" keeps the exact top k.  tau is raised to 2^32, so no
-//        dead key is admitted and a row with fewer than k live keys keeps
-//        all of them; groups strided across the columns keep a block that
-//        ends mid-way at G live groups.
-//     b. compaction: keys >= tau go to the row's candidate list in shared
-//        memory (512 keys), placed by warp ballot and popc.  For random
-//        scores ~1.2 k survive (62 at k = 50).
+//        for k <= 64, 128, 256); a lane reads its columns 16 bytes at a time
+//        (4 l + 128 i + e, e < 4), so it owns G / 32 whole groups.  The warp
+//        sorts the G group maxima of the ords (a bitonic network in registers
+//        and shuffles) and takes the k-th, tau.  The k largest maxima come
+//        from k distinct tokens, so the row's k-th key has an ord >= tau and
+//        "ord >= tau" keeps the exact top k, ties at the boundary included.
+//        tau is at least 1, so no dead token is admitted and a row with fewer
+//        than k live tokens keeps all of them; groups strided across the
+//        columns keep a block that ends mid-way at G live groups.
+//     b. compaction: the keys of the columns with ord >= tau go to the row's
+//        candidate list in shared memory (512 keys), placed by warp ballot
+//        and popc.  For random scores ~1.2 k survive (62 at k = 50).
 //     c. escalation, exact: a row with more than 512 survivors (its winners
-//        packed into fewer than k groups) bisects the key range between tau
-//        and its largest key, counting keys at or above the midpoint, until
-//        k to 512 keys are left (keys are distinct, so a count never jumps
-//        by more than one), and compacts again.  It adds one to
-//        `escalations` when that is given.
-//     d. the candidates (padded with 0 to a power of two, at least
-//        max(k, 64)) are sorted by the warp in registers, and the first k go
-//        to the query's list b of a buffer [N, n_live, k] in device memory.
+//        packed into fewer than k groups, or scores tied across the row)
+//        bisects the key range between tau and its largest ord, counting
+//        keys at or above the midpoint, until k to 512 keys are left (keys
+//        are distinct, so a count never jumps by more than one), and compacts
+//        again.  It adds one to `escalations` when that is given.
+//     d. up to 128 candidates are placed by rank (each lane counts the
+//        candidates above its own, reading each once as a broadcast); more
+//        are sorted by the warp in registers.  The first k go to the query's
+//        list b of a buffer [N, n_live, k] in device memory.
 //  2. topk_sort_merge_kernel: one warp per query merges its n_live sorted
 //     lists: lane l holds the heads of lists l, l + 32, ...; each output
 //     slot is the warp's largest head (one shuffle reduction of 64-bit
@@ -75,7 +82,6 @@ constexpr int kCols = kBlk / 32;         // columns a lane owns: 64
 // a quarter warp storing two columns of four rows hits 32 distinct banks.
 constexpr int kRowStride = kBlk + 8;
 constexpr int kCap = 512;                // candidate list of a row
-constexpr u64 kLiveFloor = 1ull << 32;   // the least live key
 constexpr int kMergeWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
 // bf16 scoring: warp w scores tokens [128 w, 128 w + 128) of the block in
@@ -87,6 +93,12 @@ constexpr int kStages = 4;
 constexpr int kStageElems = kChunk * 64;     // bf16 of one staged chunk
 
 static_assert(kCols == 64, "a lane owns columns lane + 32 i, i < 64");
+// the candidate lists' space holds the staging ring until the tile is scored
+static_assert(sizeof(__nv_bfloat16) * kQT * kStages * kStageElems <=
+                  sizeof(u64) * kQT * kCap,
+              "the staging ring fits in the candidate lists' space");
+static_assert(kQT * kRowStride * sizeof(unsigned) % 16 == 0,
+              "16-byte aligned staging ring");
 
 __device__ __forceinline__ unsigned ord_of(float v) {
   const unsigned u = __float_as_uint(v);
@@ -256,19 +268,20 @@ __device__ __forceinline__ void score_block_mma(const __nv_bfloat16* qk,
   __syncthreads();
 }
 
-__device__ __forceinline__ void cmp_swap(u64& x, u64& y, bool desc) {
+template <typename V>
+__device__ __forceinline__ void cmp_swap(V& x, V& y, bool desc) {
   if ((x < y) == desc) {
-    const u64 t = x;
+    const V t = x;
     x = y;
     y = t;
   }
 }
 
-// Bitonic sort, descending, of the warp's 32 R keys: key e = 32 r + lane is
-// v[r] of that lane.  Strides of 32 and more pair registers of one lane,
+// Bitonic sort, descending, of the warp's 32 R values: value e = 32 r + lane
+// is v[r] of that lane.  Strides of 32 and more pair registers of one lane,
 // smaller ones pair lanes by shuffles.
-template <int R>
-__device__ __forceinline__ void warp_sort_desc(u64* v) {
+template <int R, typename V>
+__device__ __forceinline__ void warp_sort_desc(V* v) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int size = 2; size <= 32 * R; size <<= 1) {
@@ -284,7 +297,7 @@ __device__ __forceinline__ void warp_sort_desc(u64* v) {
         const bool lower = (lane & stride) == 0;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const u64 o = __shfl_xor_sync(kFull, v[r], stride);
+          const V o = __shfl_xor_sync(kFull, v[r], stride);
           const bool desc = ((32 * r + lane) & size) == 0;
           v[r] = (lower == desc) ? (o > v[r] ? o : v[r]) : (o < v[r] ? o : v[r]);
         }
@@ -293,10 +306,10 @@ __device__ __forceinline__ void warp_sort_desc(u64* v) {
   }
 }
 
-// Key e = 32 r + lane of the warp's sorted keys v.
-template <int R>
-__device__ __forceinline__ u64 warp_key_at(const u64* v, int e) {
-  u64 x = 0ull;
+// Value e = 32 r + lane of the warp's values v.
+template <int R, typename V>
+__device__ __forceinline__ V warp_value_at(const V* v, int e) {
+  V x = 0;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r == (e >> 5)) x = v[r];
@@ -304,43 +317,76 @@ __device__ __forceinline__ u64 warp_key_at(const u64* v, int e) {
   return __shfl_sync(kFull, x, e & 31);
 }
 
-// tau = max(the k-th largest of the row's 32 GPL group maxima, kLiveFloor),
-// and the row's largest key.
+// A lane reads the row 16 bytes at a time: columns 4 (lane + 32 i) + e,
+// i < kVecs, e < 4.
+constexpr int kVecs = kBlk / 128;  // 16
+
+// The k-th largest of the row's 32 GPL group maxima of ords (at least 1),
+// and the row's largest ord.  Column c is in group c mod 32 GPL, so lane l
+// owns the groups 4 l + e + 128 (i % (GPL / 4)).
 template <int GPL>
-__device__ __forceinline__ void group_threshold(const unsigned* row, int lo,
-                                                int top_k, u64& tau,
-                                                u64& top) {
+__device__ __forceinline__ void group_threshold(const unsigned* row,
+                                                int top_k, unsigned& tau,
+                                                unsigned& top) {
   const int lane = threadIdx.x & 31;
-  u64 m[GPL];
+  const uint4* row4 = reinterpret_cast<const uint4*>(row);
+  unsigned m[GPL];
 #pragma unroll
-  for (int j = 0; j < GPL; ++j) m[j] = 0ull;
+  for (int j = 0; j < GPL; ++j) m[j] = 0u;
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) {
-    const int c = lane + 32 * i;  // group c mod 32 GPL: this lane's i % GPL
-    const u64 key = key_of(row[c], lo + c);
-    m[i % GPL] = key > m[i % GPL] ? key : m[i % GPL];
+  for (int i = 0; i < kVecs; ++i) {
+    const uint4 o = row4[lane + 32 * i];
+    unsigned* g = m + 4 * (i % (GPL / 4));
+    g[0] = max(g[0], o.x);
+    g[1] = max(g[1], o.y);
+    g[2] = max(g[2], o.z);
+    g[3] = max(g[3], o.w);
   }
   warp_sort_desc<GPL>(m);
-  const u64 t = warp_key_at<GPL>(m, top_k - 1);
-  tau = t > kLiveFloor ? t : kLiveFloor;
+  tau = max(warp_value_at<GPL>(m, top_k - 1), 1u);
   top = __shfl_sync(kFull, m[0], 0);
 }
 
-// Keys of the row >= tau, in column order, to cand[0, min(count, kCap));
-// returns their count.
-__device__ __forceinline__ int compact(const unsigned* row, int lo, u64 tau,
-                                       u64* cand) {
+// Keys of the row's columns whose ord is >= tau to cand[0, min(count,
+// kCap)); returns their count.  Few columns pass, so a warp skips the
+// placement where none of its 32 does.
+__device__ __forceinline__ int compact(const unsigned* row, int lo,
+                                       unsigned tau, u64* cand) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const uint4* row4 = reinterpret_cast<const uint4*>(row);
+  int count = 0;
+#pragma unroll 4
+  for (int i = 0; i < kVecs; ++i) {
+    const uint4 o = row4[lane + 32 * i];
+    const unsigned ord[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned ballot = __ballot_sync(kFull, ord[e] >= tau);
+      if (ballot) {
+        const int p = count + __popc(ballot & below);
+        if (ord[e] >= tau && p < kCap) {
+          cand[p] = key_of(ord[e], lo + 4 * (lane + 32 * i) + e);
+        }
+        count += __popc(ballot);
+      }
+    }
+  }
+  return count;
+}
+
+// Keys of the row >= t to cand[0, min(count, kCap)); returns their count.
+__device__ __forceinline__ int compact_keys(const unsigned* row, int lo, u64 t,
+                                            u64* cand) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   int count = 0;
-#pragma unroll 8
   for (int i = 0; i < kCols; ++i) {
     const int c = lane + 32 * i;
     const u64 key = key_of(row[c], lo + c);
-    const bool in = key >= tau;
-    const unsigned ballot = __ballot_sync(kFull, in);
+    const unsigned ballot = __ballot_sync(kFull, key >= t);
     const int p = count + __popc(ballot & below);
-    if (in && p < kCap) cand[p] = key;
+    if (key >= t && p < kCap) cand[p] = key;
     count += __popc(ballot);
   }
   return count;
@@ -377,23 +423,53 @@ __device__ __forceinline__ void sort_candidates(const u64* cand, int count,
   }
 }
 
+// The row's `count` <= 32 R candidates placed by rank (how many candidates
+// are larger; keys are distinct): the first top_k keys in order to out,
+// zeros past `count`.  The warp reads each candidate once, as a broadcast.
+template <int R>
+__device__ __forceinline__ void rank_candidates(const u64* cand, int count,
+                                                int top_k, u64* out) {
+  const int lane = threadIdx.x & 31;
+  u64 v[R];
+  int rank[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = 32 * r + lane;
+    v[r] = e < count ? cand[e] : 0ull;
+    rank[r] = 0;
+  }
+#pragma unroll 4
+  for (int j = 0; j < count; ++j) {
+    const u64 o = cand[j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) rank[r] += o > v[r];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (32 * r + lane < count && rank[r] < top_k) out[rank[r]] = v[r];
+  }
+  for (int e = count + lane; e < top_k; e += 32) out[e] = 0ull;
+}
+
 // The warp's row of the score tile -> its exact top_k keys, sorted, in out.
 __device__ __forceinline__ void select_row(const unsigned* row, int lo,
                                            int top_k, u64* cand, u64* out,
                                            int* escalations) {
-  u64 tau, top;
+  unsigned tau, top;
   if (top_k <= 64) {
-    group_threshold<4>(row, lo, top_k, tau, top);
+    group_threshold<4>(row, top_k, tau, top);
   } else if (top_k <= 128) {
-    group_threshold<8>(row, lo, top_k, tau, top);
+    group_threshold<8>(row, top_k, tau, top);
   } else {
-    group_threshold<16>(row, lo, top_k, tau, top);
+    group_threshold<16>(row, top_k, tau, top);
   }
   int count = compact(row, lo, tau, cand);
   if (count > kCap) {
-    // count(a) > kCap >= top_k > count(b): b - a >= 2, so mid lies strictly
-    // between them and the loop ends at a count in [top_k, kCap]
-    u64 a = tau, b = top + 1;
+    // on keys: count(a) > kCap >= top_k > count(b), so b - a >= 2 (keys are
+    // distinct), mid lies strictly between them, and the loop ends at a
+    // count in [top_k, kCap]
+    u64 a = static_cast<u64>(tau) << 32;
+    u64 b = (static_cast<u64>(top) + 1) << 32;
     for (;;) {
       const u64 mid = a + ((b - a) >> 1);
       const int c = count_at_least(row, lo, mid);
@@ -405,18 +481,17 @@ __device__ __forceinline__ void select_row(const unsigned* row, int lo,
       }
     }
     __syncwarp();
-    count = compact(row, lo, a, cand);
+    count = compact_keys(row, lo, a, cand);
     if ((threadIdx.x & 31) == 0 && escalations != nullptr) {
       atomicAdd(escalations, 1);
     }
   }
   __syncwarp();
-  const int need = max(count, top_k);
-  if (need <= 64) {
-    sort_candidates<2>(cand, count, top_k, out);
-  } else if (need <= 128) {
-    sort_candidates<4>(cand, count, top_k, out);
-  } else if (need <= 256) {
+  if (count <= 64) {
+    rank_candidates<2>(cand, count, top_k, out);
+  } else if (count <= 128) {
+    rank_candidates<4>(cand, count, top_k, out);
+  } else if (max(count, top_k) <= 256) {
     sort_candidates<8>(cand, count, top_k, out);
   } else {
     sort_candidates<16>(cand, count, top_k, out);
@@ -508,12 +583,6 @@ topk_sort_merge_kernel(const u64* __restrict__ part, float* __restrict__ out_v,
   }
   if (!raw) warp_softmax_row(ov, top_k);
 }
-
-static_assert(sizeof(__nv_bfloat16) * kQT * kStages * kStageElems <=
-                  sizeof(u64) * kQT * kCap,
-              "the staging ring fits in the candidate lists' space");
-static_assert(kQT * kRowStride * sizeof(unsigned) % 16 == 0,
-              "16-byte aligned staging ring");
 
 size_t block_smem_bytes(int ck) {
   return sizeof(unsigned) * static_cast<size_t>(kQT) * kRowStride +

@@ -251,10 +251,11 @@ def test_row_selection_kernels_exact_ties(cuda, method, dtype, top_k):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("top_k", [50, 256])
 def test_sort_kernel_identical_keys(cuda, dtype, top_k):
-    """Every token the same key: all scores of a row tie, so its keys differ
-    only in their ids.  Each group's maximum is its lowest id, so the
-    threshold admits exactly the k lowest ids: no row escalates, and the
-    ids are the lowest, as the plain version's."""
+    """Every token the same key: all scores of a row tie, so the threshold
+    (on scores) admits all 2,048 keys of a block, more than the candidate
+    list holds.  Every (query, block) row of the two full blocks takes the
+    exact escalation (the third, 404 tokens, fits), which splits the tie by
+    id: the ids are the lowest, as the plain version's."""
     rng = np.random.default_rng(8)
     mk = torch.from_numpy(np.tile(rng.standard_normal((1, 64)), (5000, 1))
                           .astype(np.float32)).to(cuda, dtype)
@@ -264,7 +265,7 @@ def test_sort_kernel_identical_keys(cuda, dtype, top_k):
     _, idx = topk_select_sort(qk, mk, 4500, top_k, escalations=esc)
     want = torch.arange(top_k, dtype=torch.int32, device=cuda)
     assert torch.equal(idx, want.expand(45, top_k))
-    assert int(esc) == 0
+    assert int(esc) == 45 * 2
 
 
 @pytest.mark.cuda
