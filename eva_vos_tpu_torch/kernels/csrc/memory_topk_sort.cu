@@ -11,13 +11,13 @@
 // What bounds it: not the device-memory bytes nor the tensor-core rate
 // (0.12 ms at fill 72, N = 8,100), but the block's L2 traffic and the row
 // passes after it.  Each 16-query block stages its bank block's 256 KB of
-// bf16 keys from L2: 7.6 GB at fill 72, about half of the kernel's time
-// (~2 ms at ~3.7 TB/s, measured by timing the scoring alone).  The rest is
-// the per-row threshold, compaction and ranking passes over 2,048 scores,
-// which run one warp a row at 16 warps an SM (the 197 KB of shared memory
-// allow one block an SM), so their shuffle and ballot chains are exposed.
-// No row is sorted whole: only ~k of its 2,048 keys can reach the output,
-// and a full per-row sort was the previous design's cost.
+// bf16 keys from L2, 7.6 GB at fill 72 (N = 8,100), so the L2 bandwidth
+// sets the scoring's time.  The per-row threshold, compaction and ranking
+// passes over 2,048 scores run one warp a row at 16 warps an SM (the 197 KB
+// of shared memory allow one block an SM), so their shuffle and ballot
+// chains are exposed and do not overlap the next block's scoring.  No row
+// is sorted whole: only ~k of its 2,048 keys can reach the output, and a
+// full per-row sort was the previous design's cost.
 //
 // Design.  The TPU kernel runs lax.top_k on each bank block's scores and
 // merges the block's sorted top k into a running sorted list, incumbent
@@ -77,7 +77,9 @@ using u64 = unsigned long long;
 constexpr int kQT = 16;                  // queries per block, one per warp
 constexpr int kBlk = 2048;               // bank tokens per block (block_m)
 constexpr int kThreads1 = 32 * kQT;      // 512
-constexpr int kCols = kBlk / 32;         // columns a lane owns: 64
+// A lane reads a row 16 bytes at a time: columns 4 (lane + 32 i) + e,
+// i < kVecs, e < 4.
+constexpr int kVecs = kBlk / 128;
 // Words per row of the score tile: rows 8 words apart in the banks, so that
 // a quarter warp storing two columns of four rows hits 32 distinct banks.
 constexpr int kRowStride = kBlk + 8;
@@ -92,7 +94,6 @@ constexpr int kChunks = kWarpToks / kChunk;  // 16
 constexpr int kStages = 4;
 constexpr int kStageElems = kChunk * 64;     // bf16 of one staged chunk
 
-static_assert(kCols == 64, "a lane owns columns lane + 32 i, i < 64");
 // the candidate lists' space holds the staging ring until the tile is scored
 static_assert(sizeof(__nv_bfloat16) * kQT * kStages * kStageElems <=
                   sizeof(u64) * kQT * kCap,
@@ -317,10 +318,6 @@ __device__ __forceinline__ V warp_value_at(const V* v, int e) {
   return __shfl_sync(kFull, x, e & 31);
 }
 
-// A lane reads the row 16 bytes at a time: columns 4 (lane + 32 i) + e,
-// i < kVecs, e < 4.
-constexpr int kVecs = kBlk / 128;  // 16
-
 // The k-th largest of the row's 32 GPL group maxima of ords (at least 1),
 // and the row's largest ord.  Column c is in group c mod 32 GPL, so lane l
 // owns the groups 4 l + e + 128 (i % (GPL / 4)).
@@ -347,11 +344,13 @@ __device__ __forceinline__ void group_threshold(const unsigned* row,
   top = __shfl_sync(kFull, m[0], 0);
 }
 
-// Keys of the row's columns whose ord is >= tau to cand[0, min(count,
-// kCap)); returns their count.  Few columns pass, so a warp skips the
-// placement where none of its 32 does.
-__device__ __forceinline__ int compact(const unsigned* row, int lo,
-                                       unsigned tau, u64* cand) {
+// The row's keys >= t, in no set order, to cand[0, min(count, kCap));
+// returns their count.  By_ord: t's low word is 0, so an ord >= t's high
+// word decides.  Few columns pass, so a warp skips the placement where none
+// of its 32 does.
+template <bool by_ord>
+__device__ __forceinline__ int compact(const unsigned* row, int lo, u64 t,
+                                       u64* cand) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const uint4* row4 = reinterpret_cast<const uint4*>(row);
@@ -362,12 +361,13 @@ __device__ __forceinline__ int compact(const unsigned* row, int lo,
     const unsigned ord[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const unsigned ballot = __ballot_sync(kFull, ord[e] >= tau);
+      const u64 key = key_of(ord[e], lo + 4 * (lane + 32 * i) + e);
+      const bool in = by_ord ? ord[e] >= static_cast<unsigned>(t >> 32)
+                             : key >= t;
+      const unsigned ballot = __ballot_sync(kFull, in);
       if (ballot) {
         const int p = count + __popc(ballot & below);
-        if (ord[e] >= tau && p < kCap) {
-          cand[p] = key_of(ord[e], lo + 4 * (lane + 32 * i) + e);
-        }
+        if (in && p < kCap) cand[p] = key;
         count += __popc(ballot);
       }
     }
@@ -375,30 +375,17 @@ __device__ __forceinline__ int compact(const unsigned* row, int lo,
   return count;
 }
 
-// Keys of the row >= t to cand[0, min(count, kCap)); returns their count.
-__device__ __forceinline__ int compact_keys(const unsigned* row, int lo, u64 t,
-                                            u64* cand) {
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int count = 0;
-  for (int i = 0; i < kCols; ++i) {
-    const int c = lane + 32 * i;
-    const u64 key = key_of(row[c], lo + c);
-    const unsigned ballot = __ballot_sync(kFull, key >= t);
-    const int p = count + __popc(ballot & below);
-    if (key >= t && p < kCap) cand[p] = key;
-    count += __popc(ballot);
-  }
-  return count;
-}
-
 __device__ __forceinline__ int count_at_least(const unsigned* row, int lo,
                                               u64 t) {
   const int lane = threadIdx.x & 31;
+  const uint4* row4 = reinterpret_cast<const uint4*>(row);
   unsigned c = 0;
-#pragma unroll 8
-  for (int i = 0; i < kCols; ++i) {
-    c += key_of(row[lane + 32 * i], lo + lane + 32 * i) >= t;
+#pragma unroll 4
+  for (int i = 0; i < kVecs; ++i) {
+    const uint4 o = row4[lane + 32 * i];
+    const int id = lo + 4 * (lane + 32 * i);
+    c += (key_of(o.x, id) >= t) + (key_of(o.y, id + 1) >= t) +
+         (key_of(o.z, id + 2) >= t) + (key_of(o.w, id + 3) >= t);
   }
   return static_cast<int>(__reduce_add_sync(kFull, c));
 }
@@ -463,12 +450,12 @@ __device__ __forceinline__ void select_row(const unsigned* row, int lo,
   } else {
     group_threshold<16>(row, top_k, tau, top);
   }
-  int count = compact(row, lo, tau, cand);
+  u64 a = static_cast<u64>(tau) << 32;  // keys of ords >= tau
+  int count = compact<true>(row, lo, a, cand);
   if (count > kCap) {
-    // on keys: count(a) > kCap >= top_k > count(b), so b - a >= 2 (keys are
+    // count(a) > kCap >= top_k > count(b), so b - a >= 2 (keys are
     // distinct), mid lies strictly between them, and the loop ends at a
     // count in [top_k, kCap]
-    u64 a = static_cast<u64>(tau) << 32;
     u64 b = (static_cast<u64>(top) + 1) << 32;
     for (;;) {
       const u64 mid = a + ((b - a) >> 1);
@@ -481,7 +468,7 @@ __device__ __forceinline__ void select_row(const unsigned* row, int lo,
       }
     }
     __syncwarp();
-    count = compact_keys(row, lo, a, cand);
+    count = compact<false>(row, lo, a, cand);
     if ((threadIdx.x & 31) == 0 && escalations != nullptr) {
       atomicAdd(escalations, 1);
     }

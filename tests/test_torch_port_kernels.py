@@ -153,22 +153,11 @@ def _assert_same_selection(vals, idx, ref_vals, ref_idx, atol):
     assert not ((idx != ref_idx[:, :k]) & ~tied).any()
 
 
-# the sort kernel's count of rows that took its exact escalation
-_SORT_ESCALATIONS = {}
-
-
-def _escalation_counter(method, device):
-    """The sort kernel's escalations argument (a fresh zero), or none."""
-    if method != "sort":
-        return {}
-    _SORT_ESCALATIONS["n"] = torch.zeros(1, dtype=torch.int32, device=device)
-    return {"escalations": _SORT_ESCALATIONS["n"]}
-
-
-def _assert_no_escalation(method):
-    """Random banks never overflow the sort kernel's candidate lists."""
-    if method == "sort":
-        assert int(_SORT_ESCALATIONS["n"]) == 0
+def _escalations(method, device):
+    """The sort kernel's counter of escalated rows (a one-element zero)
+    and the keyword that hands it over; no keyword for other methods."""
+    esc = torch.zeros(1, dtype=torch.int32, device=device)
+    return esc, ({"escalations": esc} if method == "sort" else {})
 
 
 @pytest.mark.cuda
@@ -186,14 +175,14 @@ def test_row_selection_kernels_at_bank_fills(cuda, method, dtype, n, fill):
         dtype)
     valid = fill * FRAME_TOKENS
     before = fn.launches
-    vals, idx = fn(qk, mk, valid, 50, return_raw=True,
-                   **_escalation_counter(method, cuda))
+    esc, kw = _escalations(method, cuda)
+    vals, idx = fn(qk, mk, valid, 50, return_raw=True, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert vals.shape == idx.shape == (n, 50) and idx.dtype == torch.int32
     pv, pi = topk_scores(mk, qk, 50, valid)
     _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
-    _assert_no_escalation(method)
+    assert int(esc) == 0  # random banks never overflow the sort's lists
 
 
 @pytest.mark.cuda
@@ -211,10 +200,10 @@ def test_row_selection_kernels_partial_fills(cuda, method, dtype, valid,
     g = torch.Generator(device=cuda).manual_seed(valid)
     qk = torch.randn((300, 64), generator=g, device=cuda).to(dtype)
     mk = torch.randn((5000, 64), generator=g, device=cuda).to(dtype)
-    vals, idx = fn(qk, mk, valid, top_k, return_raw=True,
-                   **_escalation_counter(method, cuda))
+    esc, kw = _escalations(method, cuda)
+    vals, idx = fn(qk, mk, valid, top_k, return_raw=True, **kw)
     assert vals.shape == idx.shape == (300, top_k)
-    _assert_no_escalation(method)
+    assert int(esc) == 0
     pv, pi = topk_scores(mk, qk, top_k, valid)
     live = min(valid, top_k)
     _assert_same_selection(vals[:, :live], idx[:, :live], pv[:, :live],
