@@ -1,5 +1,5 @@
 // Exact top-k selection by pruning each bank block's scores to a few
-// candidates, sorting those, and merging the blocks' sorted lists (sm_90a).
+// candidates, ranking those, and merging the blocks' sorted lists (sm_90a).
 //
 // Replaces eva_vos_tpu/kernels/memory_topk.py:_kernel (with _merge_topk),
 // reached through pallas_memory_topk(method="sort").  The same function and
@@ -81,7 +81,7 @@ constexpr int kThreads1 = 32 * kQT;      // 512
 // i < kVecs, e < 4.
 constexpr int kVecs = kBlk / 128;
 // Words per row of the score tile: rows 8 words apart in the banks, so that
-// a quarter warp storing two columns of four rows hits 32 distinct banks.
+// a half warp storing two columns each of four rows hits 32 distinct banks.
 constexpr int kRowStride = kBlk + 8;
 constexpr int kCap = 512;                // candidate list of a row
 constexpr int kMergeWarps = 8;

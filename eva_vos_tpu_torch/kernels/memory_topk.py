@@ -17,8 +17,9 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
   (``_kernel_iter``), per-block k-pass extraction into a candidate buffer,
   then one extraction, kernel ``csrc/memory_topk_iter.cu``;
 * :func:`topk_select_sort` — ``pallas_memory_topk(method="sort")``
-  (``_kernel``), per-block pruning to a few candidates and a sort of those,
-  then a merge of the sorted lists, kernel ``csrc/memory_topk_sort.cu``;
+  (``_kernel``), per-block pruning to a few candidates and a ranking of
+  those, then a merge of the sorted lists, kernel
+  ``csrc/memory_topk_sort.cu``;
   :func:`sort_prune_threshold` states its pruning rule for the tests;
 * :func:`select_topk` — ``pallas_memory_topk``: a method name to one of them,
   'iterative' by default as there.
@@ -293,7 +294,7 @@ def topk_select_sort(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
                      top_k: int, return_raw: bool = False,
                      escalations: torch.Tensor | None = None):
     """Top-k selection by pruning each bank block's scores to the keys at or
-    above :func:`sort_prune_threshold`, sorting those, and merging the
+    above :func:`sort_prune_threshold`, ranking those, and merging the
     blocks' sorted top-k lists; outputs and plain version as
     :func:`topk_select_iter`.  ``escalations``, a CUDA int32 tensor of one
     element, gains the number of (query, bank block) rows whose survivors
@@ -341,16 +342,18 @@ def sort_keys(scores: torch.Tensor, ids: torch.Tensor,
 
 def sort_prune_threshold(keys: torch.Tensor, top_k: int,
                          groups: int | None = None) -> torch.Tensor:
-    """Plain statement of the sort kernel's pruning threshold tau [...] for
-    rows of keys [..., B] (:func:`sort_keys`): the top_k-th largest of the
-    maxima of the groups {c : c mod G == g} (G = ``groups``, by default the
-    kernel's :func:`sort_prune_groups`), raised to the least live key.  The
-    top_k largest maxima are top_k distinct keys, so the keys >= tau hold
-    the row's exact top_k."""
+    """Plain statement of the sort kernel's pruning threshold [...] for rows
+    of keys [..., B] (:func:`sort_keys`): the top_k-th largest of the maxima
+    of the score bits (the keys' high words) over the groups
+    {c : c mod G == g} (G = ``groups``, by default the kernel's
+    :func:`sort_prune_groups`), at least 1, as the least key with those
+    bits.  The top_k largest maxima come from top_k distinct tokens, so the
+    row's top_k keys lie at or above it, ties included."""
     groups = groups or sort_prune_groups(top_k)
-    maxima = keys.unflatten(-1, (-1, groups)).amax(-2)
+    bits = keys >> 32  # the score bits, less 2^31 (floor: exact)
+    maxima = bits.unflatten(-1, (-1, groups)).amax(-2)
     tau = maxima.topk(top_k, dim=-1).values[..., -1]
-    return tau.clamp(min=-2 ** 63 + 2 ** 32)
+    return tau.clamp(min=1 - 2 ** 31) * 2 ** 32
 
 
 for _fn in (topk_select, topk_select_chunked, topk_select_resident,

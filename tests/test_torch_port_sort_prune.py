@@ -1,8 +1,9 @@
 """The sort kernel's pruning rule, on the CPU.
 
 ``memory_topk_sort.cu`` keeps, of each (query, 2,048-token bank block) row,
-only the keys at or above tau, the k-th largest of the row's group maxima
-(groups strided across the columns), and sorts those.  Its plain statement,
+only the keys whose score is at or above tau, the k-th largest of the row's
+group maxima of scores (groups strided across the columns), and ranks
+those.  Its plain statement,
 ``sort_prune_threshold``, is held here to the rule's promise: the keys >= tau
 contain the row's exact top k, no dead key is admitted, and a row with fewer
 live keys than k keeps all of them.  The rows: random scores, exact ties,
@@ -87,13 +88,15 @@ def test_block_ending_mid_way(live, top_k):
         assert (count >= top_k).all() and (count <= SORT_CAPACITY).all()
 
 
-def test_tied_keys_admit_exactly_k():
-    """Scores tied across a whole row differ only in ~id: the group maxima
-    are the lowest ids of their groups, so tau admits the k lowest ids."""
+def test_scores_tied_across_a_row_admit_the_whole_row():
+    """The threshold is on scores, so a score tied across the row admits
+    every key: more than the kernel's candidate list, so its exact
+    escalation (which splits the tie by id) takes such rows."""
     keys = _keys(_rows("constant", 4, 3), BLOCK)
     for top_k in (1, 50, 256):
         tau = sort_prune_threshold(keys, top_k)
-        assert ((keys >= tau[:, None]).sum(-1) == top_k).all()
+        assert ((keys >= tau[:, None]).sum(-1) == BLOCK).all()
+    assert BLOCK > SORT_CAPACITY
 
 
 @pytest.mark.parametrize("top_k", [50, 64, 100, 128, 256])
