@@ -628,9 +628,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernel names: run only phases 1-4 "
-                         "for them, write chiprun_out/chip_smoke_kernels.json "
-                         "and print no final line (a quick check, not the "
-                         "smoke test)")
+                         "for them, write chip_smoke_kernels.json beside "
+                         "chip_smoke.json and print no final line (a quick "
+                         "check, not the smoke test)")
     args = ap.parse_args(argv)
     try:
         import torch
