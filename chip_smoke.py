@@ -1,7 +1,6 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # from the repository root, one card
-    python3 chip_smoke.py --kernels memory_topk_sort   # phases 1-4 only
 
 Phases, each of which raises on failure (so no failure ends with exit 0):
 
@@ -21,7 +20,9 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    (TF32 off and on, the faster kept) and ``torch.topk`` together
    (``torch.topk`` alone on the plain scores is printed as ``topk_only``).
    For the sort kernel also its block and merge kernels' device times
-   (``torch.profiler``) and the rows that took its exact escalation;
+   (``torch.profiler``) and the rows that took its exact escalation, and,
+   on the 72-slot clustered bank at N = 8100, the same at top_k = 256,
+   where each row keeps more candidates than the kernel ranks one by one;
 4. the two readout kernels against their plain version (K = 1 and 2,
    CV = 512) on the oldest-first selections of phase 3;
 5. the selection entry point ``select_topk`` at N = 8100 on a 72-slot
@@ -85,8 +86,10 @@ READOUT_RTOL, READOUT_ATOL = 2 ** -7, 2e-2
 PROB_ATOL, PROB_FRAC = 5e-2, 1e-3
 
 
-SORT_BLOCK = 2048             # bank tokens per block of the sort kernel
 SORT_KERNELS = ("topk_sort_block_kernel", "topk_sort_merge_kernel")
+# the sort kernel's largest top_k: ~300 keys of a row survive its pruning,
+# more than it ranks one by one, so it sorts them in a warp
+SORT_WIDE_K = 256
 
 # the selections that return [N, k] rows (softmax weights by default)
 ROW_SELECTIONS = ("memory_topk_grid", "memory_topk_iter", "memory_topk_sort")
@@ -200,27 +203,29 @@ def make_bank(torch, gen, qk, fill: int, clustered: bool):
     return mk.to(torch.bfloat16), fill * HW_TOKENS
 
 
-def check_selection(torch, vals, idx, ref_vals, ref_idx, name):
-    err = (vals - ref_vals[:TOP_K]).abs().max().item()
+def check_selection(torch, vals, idx, ref_vals, ref_idx, name, k=None):
+    k = k or TOP_K
+    err = (vals - ref_vals[:k]).abs().max().item()
     if err > SCORE_ATOL:
         fail(f"{name}: selection scores differ by {err}")
     gaps = (ref_vals[:-1] - ref_vals[1:]).abs() <= SCORE_ATOL  # [k, N]
-    tied = gaps[:TOP_K].clone()
-    tied[1:] |= gaps[:TOP_K - 1]
-    bad = (idx != ref_idx[:TOP_K]) & ~tied
+    tied = gaps[:k].clone()
+    tied[1:] |= gaps[:k - 1]
+    bad = (idx != ref_idx[:k]) & ~tied
     if bad.any():
         fail(f"{name}: {int(bad.sum())} selected ids differ away from ties")
-    return err, int((idx != ref_idx[:TOP_K]).sum())
+    return err, int((idx != ref_idx[:k]).sum())
 
 
-def selection_bound(n: int, valid: int):
+def selection_bound(n: int, valid: int, k=None):
     """Bound of an exact top-k selection: read qk and the valid keys once,
     write k (score, id) pairs per query; 2 * CK flops per (query, token)."""
-    n_bytes = 2 * CK * (n + valid) + 8 * TOP_K * n
+    k = k or TOP_K
+    n_bytes = 2 * CK * (n + valid) + 8 * k * n
     return bound_ms(n_bytes, 2.0 * n * valid * CK)
 
 
-def library_select(torch, mk, q):
+def library_select(torch, mk, q, k=None):
     """One library computation of the selection: the scores as one fp32
     GEMM whose bias is -|k|^2 / sqrt(CK) (2 / sqrt(64) and 1 / sqrt(64) are
     powers of two, so the result is the plain version's), then
@@ -229,25 +234,61 @@ def library_select(torch, mk, q):
     mk32 = mk.float()
     bias = (mk32 * mk32).sum(-1).mul_(-1.0 / math.sqrt(CK))
     scores = torch.addmm(bias, q.float(), mk32.T, alpha=2.0 / math.sqrt(CK))
-    return torch.topk(scores, TOP_K, dim=1)
+    return torch.topk(scores, k or TOP_K, dim=1)
 
 
-def library_times(torch, mk, q, ref_vals):
+def library_times(torch, mk, q, ref_vals, k=None):
     """``library_select``'s time with TF32 off and on (bf16 keys convert to
     TF32 exactly); each run's scores must match the plain version's."""
+    k = k or TOP_K
     times = {}
     for mode in ("fp32", "tf32"):
         torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
         try:
-            vals, _ = library_select(torch, mk, q)
-            err = (vals.T - ref_vals[:TOP_K]).abs().max().item()
+            vals, _ = library_select(torch, mk, q, k)
+            err = (vals.T - ref_vals[:k]).abs().max().item()
             if err > SCORE_ATOL:
                 fail(f"library selection ({mode}) scores differ by {err}")
-            times[mode] = cuda_ms(torch, lambda: library_select(torch, mk, q),
-                                  5)
+            times[mode] = cuda_ms(
+                torch, lambda: library_select(torch, mk, q, k), 5)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
     return times
+
+
+def sort_wide_case(torch, q, mk, valid, esc):
+    """The sort kernel at top_k = SORT_WIDE_K on one bank: checked against
+    the plain version, timed with its block and merge split and its
+    escalated rows, beside the library call at the same k."""
+    from eva_vos_tpu_torch.kernels import topk_select_plain, topk_select_sort
+    from eva_vos_tpu_torch.kernels.memory_topk import _SELECT_BLOCK
+
+    k, n = SORT_WIDE_K, q.shape[0]
+    label = f"memory_topk_sort fill{max(FILLS)}_clustered N={n} top_k={k}"
+    ref_vals, ref_idx = topk_select_plain(q, mk, valid, k + 1)
+    esc.zero_()
+    vals, idx = topk_select_sort(q, mk, valid, k, return_raw=True,
+                                 escalations=esc)
+    err, n_diff = check_selection(torch, vals.T, idx.T, ref_vals, ref_idx,
+                                  label, k)
+    rows = n * -(-valid // _SELECT_BLOCK)
+    row = dict(kernel="memory_topk_sort", top_k=k, n=n, max_abs_err=err,
+               ids_differ=n_diff, escalated_rows=int(esc.item()), rows=rows,
+               ms=cuda_ms(torch, lambda: topk_select_sort(q, mk, valid, k),
+                          10),
+               **sort_split_ms(torch,
+                               lambda: topk_select_sort(q, mk, valid, k)))
+    lib = library_times(torch, mk[:valid], q, ref_vals, k)
+    row["library_ms"] = min(lib.values())
+    row["bound_ms"], row["bound_by"] = selection_bound(n, valid, k)
+    print(f"[select] {label}: max|dv|={err:.3g} ids_differ={n_diff} kernel "
+          f"{row['ms']:.3f} ms (block kernel {row['block_ms']:.3f} ms + merge "
+          f"kernel {row['merge_ms']:.3f} ms), addmm+torch.topk "
+          f"{row['library_ms']:.3f} ms (fp32 {lib['fp32']:.3f}, tf32 "
+          f"{lib['tf32']:.3f}), bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), escalated rows {row['escalated_rows']} of "
+          f"{rows}", flush=True)
+    return row
 
 
 def readout_bound(idx, k_obj: int):
@@ -259,9 +300,7 @@ def readout_bound(idx, k_obj: int):
     return bound_ms(n_bytes, 2.0 * k_obj * n * TOP_K * CV), rows
 
 
-def kernel_phases(torch, results, names=tuple(SOURCES)):
-    """Phases 3 and 4 for the kernels in ``names`` (the readouts need the
-    oldest-first selection, memory_topk)."""
+def kernel_phases(torch, results):
     from eva_vos_tpu_torch.kernels import (select_topk, topk_readout,
                                            topk_readout_chunked,
                                            topk_readout_plain, topk_select,
@@ -269,6 +308,7 @@ def kernel_phases(torch, results, names=tuple(SOURCES)):
                                            topk_select_grid, topk_select_plain,
                                            topk_select_resident,
                                            topk_select_sort)
+    from eva_vos_tpu_torch.kernels.memory_topk import _SELECT_BLOCK
     from eva_vos_tpu_torch.ops.memory_attention import (_scores,
                                                         memory_affinity_topk,
                                                         softmax_weights)
@@ -336,8 +376,7 @@ def kernel_phases(torch, results, names=tuple(SOURCES)):
                     torch, lambda: memory_affinity_topk(mk, q, TOP_K, valid), 3)
                 bound, by = selection_bound(n, valid)
                 for name, select, timed in selectors:
-                    if name not in names or (n != N_QUERIES
-                                             and name not in SINGLE_FRAME):
+                    if n != N_QUERIES and name not in SINGLE_FRAME:
                         continue
                     esc.zero_()
                     vals, idx = select(q, mk, valid, TOP_K)
@@ -364,7 +403,7 @@ def kernel_phases(torch, results, names=tuple(SOURCES)):
                         row["escalated_blocks"] = int(esc.item())
                         note = f", escalated blocks {row['escalated_blocks']}"
                     elif name == "memory_topk_sort":
-                        rows = n * -(-valid // SORT_BLOCK)
+                        rows = n * -(-valid // _SELECT_BLOCK)
                         row.update(sort_split_ms(
                             torch, lambda: timed(q, mk, valid)),
                             escalated_rows=int(esc.item()), rows=rows)
@@ -381,9 +420,10 @@ def kernel_phases(torch, results, names=tuple(SOURCES)):
                           f"ms, bound {bound:.4f} ms ({by}){note}", flush=True)
                     if name == "memory_topk" and n == N_QUERIES:
                         sel = (vals, idx)
+                if clustered and fill == max(FILLS) and n == N_QUERIES:
+                    results["sort_wide"] = sort_wide_case(torch, q, mk, valid,
+                                                          esc)
 
-            if "memory_topk" not in names:
-                continue
             vals, idx = sel
             for k_obj in (1, 2):
                 mv = mv2[:k_obj].contiguous()
@@ -622,16 +662,7 @@ def kernels_line(results, launches):
             for name in REPLACES]
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default=None,
-                    help="comma-separated kernel names: run only phases 1-4 "
-                         "for them, write chip_smoke_kernels.json beside "
-                         "chip_smoke.json and print no final line (a quick "
-                         "check, not the smoke test)")
-    args = ap.parse_args(argv)
+def main() -> int:
     try:
         import torch
     except ImportError:
@@ -666,22 +697,14 @@ def main(argv=None) -> int:
         f"{'present' if hmma else 'absent'})"), flush=True)
 
     results = {"card": card, "build_s": build_s, "sort_hmma": hmma}
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    if args.kernels:
-        names = tuple(args.kernels.split(","))
-        if not set(names) <= set(SOURCES):
-            fail(f"unknown kernels {names}: choose from {tuple(SOURCES)}")
-        kernel_phases(torch, results, names)
-        (out_dir / "chip_smoke_kernels.json").write_text(
-            json.dumps(results, indent=1))
-        return 0
     kernel_phases(torch, results)
     entry_launches = entry_phase(torch, results)
     launches = engine_phase(torch, results, card)
     launches.update(entry_launches)
 
     kernels = kernels_line(results, launches)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(dict(results, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

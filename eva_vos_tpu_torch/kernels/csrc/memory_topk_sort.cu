@@ -9,15 +9,16 @@
 // valid < top_k hold the score -1e30 (weight exactly 0) and id 0.
 //
 // What bounds it: not the device-memory bytes nor the tensor-core rate
-// (0.12 ms at fill 72, N = 8,100), but the block's L2 traffic and the row
-// passes after it.  Each 16-query block stages its bank block's 256 KB of
-// bf16 keys from L2, 7.6 GB at fill 72 (N = 8,100), so the L2 bandwidth
-// sets the scoring's time.  The per-row threshold, compaction and ranking
-// passes over 2,048 scores run one warp a row at 16 warps an SM (the 197 KB
-// of shared memory allow one block an SM), so their shuffle and ballot
-// chains are exposed and do not overlap the next block's scoring.  No row
-// is sorted whole: only ~k of its 2,048 keys can reach the output, and a
-// full per-row sort was the previous design's cost.
+// (0.12 ms at fill 72, N = 8,100), but the block's two phases, whose split
+// is not measured.  Each 16-query block stages its bank block's 256 KB of
+// bf16 keys from L2 (7.6 GB at fill 72, N = 8,100) for the scoring; then
+// the per-row threshold, compaction and ranking passes over 2,048 scores
+// run one warp a row at 16 warps an SM (the 197 KB of shared memory allow
+// one block an SM), so their shuffle and ballot chains are exposed and do
+// not overlap the next block's scoring.  The row passes are a large share:
+// top_k = 256, which changes only them, takes several times the block time
+// of top_k = 50.  No row is sorted whole: only ~k of its 2,048 keys can
+// reach the output, and a full per-row sort was the previous design's cost.
 //
 // Design.  The TPU kernel runs lax.top_k on each bank block's scores and
 // merges the block's sorted top k into a running sorted list, incumbent
@@ -83,7 +84,10 @@ constexpr int kVecs = kBlk / 128;
 // Words per row of the score tile: rows 8 words apart in the banks, so that
 // a half warp storing two columns each of four rows hits 32 distinct banks.
 constexpr int kRowStride = kBlk + 8;
-constexpr int kCap = 512;                // candidate list of a row
+// Candidate list of a row.  memory_topk.py's SORT_CAPACITY states it (and
+// sort_prune_groups the group count of select_row) for the tests, and
+// test_sort_kernel_escalation holds the escalations counted here to it.
+constexpr int kCap = 512;
 constexpr int kMergeWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
 // bf16 scoring: warp w scores tokens [128 w, 128 w + 128) of the block in

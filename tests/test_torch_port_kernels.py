@@ -30,8 +30,12 @@ from eva_vos_tpu_torch.kernels import (KernelConfig, build, fused_readout,
                                        topk_select_chunked, topk_select_grid,
                                        topk_select_iter, topk_select_plain,
                                        topk_select_resident, topk_select_sort)
+from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
+                                                   SORT_CAPACITY, sort_keys,
+                                                   sort_prune_threshold)
 from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
-from eva_vos_tpu_torch.ops.memory_attention import (memory_affinity_topk,
+from eva_vos_tpu_torch.ops.memory_attention import (_scores,
+                                                    memory_affinity_topk,
                                                     topk_scores)
 
 
@@ -151,6 +155,19 @@ def _assert_same_selection(vals, idx, ref_vals, ref_idx, atol):
     tied[:, :close.shape[1]] |= close[:, :k]
     tied[:, 1:] |= close[:, :k - 1]
     assert not ((idx != ref_idx[:, :k]) & ~tied).any()
+
+
+def _overflowing_rows(qk, mk, valid, top_k):
+    """(query, bank block) rows whose keys at or above the plain statement
+    of the sort kernel's pruning threshold outnumber its candidate list:
+    the rows its exact escalation must take."""
+    blocks = -(-valid // _SELECT_BLOCK)
+    scores = torch.zeros((qk.shape[0], blocks * _SELECT_BLOCK))
+    scores[:, :valid] = _scores(mk[:valid], qk).cpu()
+    ids = torch.arange(scores.shape[1]).expand_as(scores)
+    keys = sort_keys(scores, ids, ids < valid).unflatten(-1, (blocks, -1))
+    tau = sort_prune_threshold(keys, top_k)
+    return int(((keys >= tau[..., None]).sum(-1) > SORT_CAPACITY).sum())
 
 
 def _escalations(method, device):
@@ -277,7 +294,7 @@ def test_sort_kernel_escalation(cuda, dtype, top_k):
     esc = torch.zeros(1, dtype=torch.int32, device=cuda)
     vals, idx = topk_select_sort(qk, mk, 3000, top_k, return_raw=True,
                                  escalations=esc)
-    assert int(esc) == 77
+    assert int(esc) == _overflowing_rows(qk, mk, 3000, top_k) == 77
     # 640 near tokens crowd each row's scores: compare up to near-ties,
     # across the last slot too
     pv, pi = topk_scores(mk, qk, top_k + 1, 3000)

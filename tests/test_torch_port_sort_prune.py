@@ -19,11 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from eva_vos_tpu_torch.kernels.memory_topk import _SELECT_BLOCK as BLOCK
 from eva_vos_tpu_torch.kernels.memory_topk import (SORT_CAPACITY, sort_keys,
                                                    sort_prune_groups,
                                                    sort_prune_threshold)
 
-BLOCK = 2048  # bank tokens per block of the sort kernel
 LIVE_FLOOR = -2 ** 63 + 2 ** 32  # the least live key, shifted as sort_keys
 
 
