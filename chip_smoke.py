@@ -7,8 +7,8 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``eva_vos_tpu_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once); print each kernel's registers and
-   spills, and the HMMA (tensor-core) instructions in the sort kernel's
-   SASS (``cuobjdump``);
+   spills, and the HMMA (tensor-core) instructions in the SASS of the
+   default and the sort selections (``cuobjdump``);
 3. the six top-k selection kernels (oldest first, newest first with the
    tau skip, two-pass resident, split bank, and through ``select_topk``
    iterative extraction, its default, and per-block sort) against their
@@ -19,10 +19,12 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    of every selection is the dense score product as one ``torch.addmm``
    (TF32 off and on, the faster kept) and ``torch.topk`` together
    (``torch.topk`` alone on the plain scores is printed as ``topk_only``).
-   For the sort kernel also its block and merge kernels' device times
-   (``torch.profiler``) and the rows that took its exact escalation, and,
-   on the 72-slot clustered bank at N = 8100, the same at top_k = 256,
-   where each row keeps more candidates than the kernel ranks one by one;
+   For the default (oldest-first) selection and the sort kernel also their
+   block and merge kernels' device times (``torch.profiler``; with one live
+   bank block the default selection launches no merge) and the rows that
+   took their exact escalation, and, on the 72-slot clustered bank at
+   N = 8100, the sort kernel at top_k = 256, where each row keeps more
+   candidates than the kernel ranks one by one;
 4. the two readout kernels against their plain version (K = 1 and 2,
    CV = 512) on the oldest-first selections of phase 3;
 5. the selection entry point ``select_topk`` at N = 8100 on a 72-slot
@@ -35,11 +37,14 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    each memory read: the default 'fused' (oldest-first selection, grid
    readout), 'select' (split-bank selection + gather), and 'fused' with
    the resident selection, and with the newest-first selection and the
-   chunked readout.  Each: a warm-up ``interact`` at frame 0, three timed
-   ones, then one at frame 30 from the resulting state (its backward pass
-   fuses through FusionNet); the launch counters, zeroed just before, must
-   show the read's kernels launched, the outputs be finite, and one blocked
-   segmentation step through the kernels must match the plain read;
+   chunked readout.  Each read: a warm-up ``interact`` at frame 0; then
+   ENGINE_ITERS timed ones per read with the reads interleaved round-robin
+   (fps as median and range), then FRAME30_ITERS untraced ones at frame 30
+   from the frame-0 state (its backward pass fuses through FusionNet),
+   interleaved too.  The launch counters, zeroed just before each
+   ``interact`` and read just after, must show each read's kernels launched,
+   the outputs be finite, and one blocked segmentation step through the
+   kernels must match the plain read;
 7. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
    times and bound.
@@ -53,6 +58,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -66,6 +72,8 @@ HW_TOKENS = 30 * 54          # key tokens of one 480x864 frame
 N_QUERIES = 5 * HW_TOKENS    # one blocked step: mem_freq frames
 CK, CV, TOP_K = 64, 512, 50
 FILLS = (1, 12, 72)          # bank slots: one memory, one pass, a full bank
+ENGINE_ITERS = 10            # timed frame-0 interacts per read, interleaved
+FRAME30_ITERS = 3            # untraced frame-30 interacts per read
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -86,7 +94,10 @@ READOUT_RTOL, READOUT_ATOL = 2 ** -7, 2e-2
 PROB_ATOL, PROB_FRAC = 5e-2, 1e-3
 
 
-SORT_KERNELS = ("topk_sort_block_kernel", "topk_sort_merge_kernel")
+# the block and merge kernels of the selections timed one by one
+SPLIT_KERNELS = {
+    "memory_topk": ("topk_prune_block_kernel", "topk_merge_t_kernel"),
+    "memory_topk_sort": ("topk_sort_block_kernel", "topk_sort_merge_kernel")}
 # the sort kernel's largest top_k: ~300 keys of a row survive its pruning,
 # more than it ranks one by one, so it sorts them in a warp
 SORT_WIDE_K = 256
@@ -146,13 +157,17 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def sort_split_ms(torch, fn, reps: int = 5, tries: int = 3) -> dict:
-    """Mean device time of each of the sort selection's two kernels over
-    ``reps`` calls of ``fn``, from a ``torch.profiler`` trace (taken again,
-    up to ``tries`` times, when the trace holds no launch of one of them)."""
+def split_ms(torch, fn, name: str, merged: bool = True, reps: int = 5,
+             tries: int = 3) -> dict:
+    """Mean device time of each of selection ``name``'s block and merge
+    kernels (SPLIT_KERNELS) over ``reps`` calls of ``fn``, from a
+    ``torch.profiler`` trace (taken again, up to ``tries`` times, when the
+    trace lacks a launch).  Without ``merged`` the merge must not launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    block, merge = SPLIT_KERNELS[name]
+    want = {block: reps, merge: reps if merged else 0}
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -160,16 +175,16 @@ def sort_split_ms(torch, fn, reps: int = 5, tries: int = 3) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = {k: [] for k in SORT_KERNELS}
+        us = {k: [] for k in want}
         for e in prof.events():
-            for k in SORT_KERNELS:
+            for k in want:
                 if e.device_type == DeviceType.CUDA and k in e.name:
                     us[k].append(e.time_range.end - e.time_range.start)
-        if all(len(v) == reps for v in us.values()):
-            return {"block_ms": sum(us[SORT_KERNELS[0]]) / reps / 1e3,
-                    "merge_ms": sum(us[SORT_KERNELS[1]]) / reps / 1e3}
-    fail(f"the profiler's trace lacks sort kernels: "
-         f"{ {k: len(v) for k, v in us.items()} } launches of {reps}")
+        if {k: len(v) for k, v in us.items()} == want:
+            return {"block_ms": sum(us[block]) / reps / 1e3,
+                    "merge_ms": sum(us[merge]) / reps / 1e3}
+    fail(f"the profiler's trace of {name}: "
+         f"{ {k: len(v) for k, v in us.items()} } launches, not {want}")
 
 
 def hmma_count(build, name: str):
@@ -276,8 +291,8 @@ def sort_wide_case(torch, q, mk, valid, esc):
                ids_differ=n_diff, escalated_rows=int(esc.item()), rows=rows,
                ms=cuda_ms(torch, lambda: topk_select_sort(q, mk, valid, k),
                           10),
-               **sort_split_ms(torch,
-                               lambda: topk_select_sort(q, mk, valid, k)))
+               **split_ms(torch, lambda: topk_select_sort(q, mk, valid, k),
+                          "memory_topk_sort"))
     lib = library_times(torch, mk[:valid], q, ref_vals, k)
     row["library_ms"] = min(lib.values())
     row["bound_ms"], row["bound_by"] = selection_bound(n, valid, k)
@@ -322,6 +337,9 @@ def kernel_phases(torch, results):
     esc = torch.zeros(1, dtype=torch.int32, device=dev)
     sel_rows, ro_rows = [], []
 
+    def topk_counted(q, mk, valid, top_k):
+        return topk_select(q, mk, valid, top_k, escalations=esc)
+
     def resident_counted(q, mk, valid, top_k):
         return topk_select_resident(q, mk, valid, top_k, escalations=esc)
 
@@ -344,7 +362,7 @@ def kernel_phases(torch, results):
     # (name in the kernels line, transposed selection (counting escalations
     # where the kernel has them), the call timed)
     selectors = (
-        ("memory_topk", topk_select,
+        ("memory_topk", topk_counted,
          lambda q, mk, valid: topk_select(q, mk, valid, TOP_K)),
         ("memory_topk_chunked", topk_select_chunked,
          lambda q, mk, valid: topk_select_chunked(q, mk, valid, TOP_K)),
@@ -402,10 +420,12 @@ def kernel_phases(torch, results):
                     if name == "memory_topk_resident":
                         row["escalated_blocks"] = int(esc.item())
                         note = f", escalated blocks {row['escalated_blocks']}"
-                    elif name == "memory_topk_sort":
+                    elif name in SPLIT_KERNELS:
                         rows = n * -(-valid // _SELECT_BLOCK)
-                        row.update(sort_split_ms(
-                            torch, lambda: timed(q, mk, valid)),
+                        row.update(split_ms(
+                            torch, lambda: timed(q, mk, valid), name,
+                            merged=(name == "memory_topk_sort"
+                                    or valid > _SELECT_BLOCK)),
                             escalated_rows=int(esc.item()), rows=rows)
                         note = (f", block kernel {row['block_ms']:.3f} ms + "
                                 f"merge kernel {row['merge_ms']:.3f} ms, "
@@ -570,36 +590,61 @@ def engine_phase(torch, results, card):
                             cfg._replace(readout_strategy="gather"),
                             device=DEVICE)
     counters = launch_counters()
-    launches, paths = {}, {}
-    for path, (fields, kernels) in engine_paths().items():
-        engine = InferenceEngine(stcn, fusion, cfg._replace(**fields),
-                                 device=DEVICE)
+    reads = engine_paths()
+    engines = {path: InferenceEngine(stcn, fusion, cfg._replace(**fields),
+                                     device=DEVICE)
+               for path, (fields, _) in reads.items()}
+    counts = {path: dict.fromkeys(counters, 0) for path in reads}
+
+    def interact(path, state, mask, idx):
+        """One untraced interact of a read, in host seconds; the counters,
+        zeroed just before, are added to the read's counts just after."""
         for c in counters.values():
             c.launches = 0
-        out = engine.interact(state0, feats, m0, 0)           # warm-up
         torch.cuda.synchronize()
-        per_interact = {k: counters[k].launches for k in kernels}
-        iters = 3
         start = time.perf_counter()
-        for _ in range(iters):
-            out = engine.interact(state0, feats, m0, 0)
+        out = engines[path].interact(state, feats, mask, idx)
         torch.cuda.synchronize()
-        elapsed = time.perf_counter() - start
-        fps = (t - 1) * iters / elapsed
-        t1 = time.perf_counter()
-        state = engine.interact(out, feats, m30, 30)
-        torch.cuda.synchronize()
-        fused_s = time.perf_counter() - t1
-        counts = {k: c.launches for k, c in counters.items()}
-        print(f"[engine {path}] fps={fps:.2f} ({t - 1} frames x {iters} interacts "
-              f"in {elapsed:.3f} s; interact at frame 30 {fused_s:.3f} s; "
-              f"precompute {precompute_s:.2f} s) on {card}", flush=True)
+        seconds = time.perf_counter() - start
+        for k, c in counters.items():
+            counts[path][k] += c.launches
+        return out, seconds
+
+    per_interact, out0 = {}, {}
+    for path, (_, kernels) in reads.items():                # warm-up
+        out0[path], _ = interact(path, state0, m0, 0)
+        per_interact[path] = {k: counts[path][k] for k in kernels}
+    walls = {path: [] for path in reads}
+    for _ in range(ENGINE_ITERS):             # round-robin: A, B, C, D, A, ...
+        for path in reads:
+            out0[path], seconds = interact(path, state0, m0, 0)
+            walls[path].append(seconds)
+    walls30, states = {path: [] for path in reads}, {}
+    for _ in range(FRAME30_ITERS):   # from the frame-0 state (no donation)
+        for path in reads:
+            states[path], seconds = interact(path, out0[path], m30, 30)
+            walls30[path].append(seconds)
+
+    launches, paths = {}, {}
+    for path, (_, kernels) in reads.items():
+        engine, state = engines[path], states[path]
+        fps_all = sorted((t - 1) / sec for sec in walls[path])
+        fps = statistics.median(fps_all)
+        fused_s = statistics.median(walls30[path])
+        print(f"[engine {path}] fps median {fps:.2f} (min {fps_all[0]:.2f}, "
+              f"max {fps_all[-1]:.2f}; {t - 1} frames x {ENGINE_ITERS} "
+              f"interleaved interacts); interact at frame 30 median "
+              f"{fused_s * 1e3:.1f} ms (min {min(walls30[path]) * 1e3:.1f}, "
+              f"max {max(walls30[path]) * 1e3:.1f}; {FRAME30_ITERS} "
+              f"untraced); precompute {precompute_s:.2f} s; on {card}",
+              flush=True)
         print(f"[engine {path}] launches per interact at frame 0: "
-              f"{per_interact}; whole path: {counts}", flush=True)
-        if min(counts[k] for k in kernels) <= 0:
-            fail(f"{path}: a kernel of the path was not launched: {counts}")
+              f"{per_interact[path]}; whole path: {counts[path]}", flush=True)
+        if min(counts[path][k] for k in kernels) <= 0:
+            fail(f"{path}: a kernel of the path was not launched: "
+                 f"{counts[path]}")
         for k in kernels:
-            launches.setdefault(k, counts[k])
+            launches.setdefault(k, counts[path][k])
         if not torch.isfinite(state.prob).all():
             fail(f"{path}: non-finite probabilities after the fused "
                  f"interaction")
@@ -630,8 +675,10 @@ def engine_phase(torch, results, card):
               f"{diff.max().item():.3g}, mean {diff.mean().item():.3g}, share "
               f"> {PROB_ATOL}: {frac:.2e}", flush=True)
         paths[path] = dict(
-            fps=fps, elapsed_s=elapsed, iters=iters, interact30_s=fused_s,
-            launches_per_interact=per_interact, launches=counts,
+            fps=fps, fps_min=fps_all[0], fps_max=fps_all[-1],
+            interact0_s=walls[path], interact30_s=fused_s,
+            interact30_all_s=walls30[path],
+            launches_per_interact=per_interact[path], launches=counts[path],
             step_max_abs_dp=diff.max().item(), step_share_off=frac,
             foreground_share=float(np.mean(ids > 0)))
     results["engine"] = dict(precompute_s=precompute_s, paths=paths)
@@ -690,13 +737,17 @@ def main() -> int:
         for line in build.ptxas_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
-    hmma = hmma_count(build, "memory_topk_sort")
-    print("[sass] memory_topk_sort: " + (
-        "cuobjdump not found" if hmma is None else
-        f"{hmma} HMMA instructions (tensor-core scoring of bf16 keys "
-        f"{'present' if hmma else 'absent'})"), flush=True)
+    hmma = {}
+    for name in SPLIT_KERNELS:
+        hmma[name] = hmma_count(build, name)
+        print(f"[sass] {name}: " + (
+            "cuobjdump not found" if hmma[name] is None else
+            f"{hmma[name]} HMMA instructions (tensor-core scoring of bf16 "
+            f"keys {'present' if hmma[name] else 'absent'})"), flush=True)
+        if hmma[name] == 0:
+            fail(f"{name}: no tensor-core instruction in its SASS")
 
-    results = {"card": card, "build_s": build_s, "sort_hmma": hmma}
+    results = {"card": card, "build_s": build_s, "hmma": hmma}
     kernel_phases(torch, results)
     entry_launches = entry_phase(torch, results)
     launches = engine_phase(torch, results, card)

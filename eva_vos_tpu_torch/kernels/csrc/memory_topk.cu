@@ -1,58 +1,217 @@
-// Exact top-k memory selection for the STCN memory read (sm_90a): two
-// kernels over one shared block selection (topk_common.cuh).
-//
-// topk_kernel replaces eva_vos_tpu/kernels/memory_topk.py:_kernel_tournament,
-// reached through tournament_topk_t.  topk_chunked_kernel replaces
-// _kernel_tournament_chunked, reached through chunked_topk_t.  Both return,
-// for every query n, the top_k memory tokens t < valid in descending order,
-// ties to the LOWEST token id, as raw scores vals[k, N] and int32 ids
-// idx[k, N] (transposed: the layout the readout kernels read).  Slots left
+// Exact top-k memory selection for the STCN memory read (sm_90a), as raw
+// scores vals[k, N] and int32 ids idx[k, N] (transposed: the layout the
+// readout kernels read).  For every query n: the top_k memory tokens
+// t < valid in descending order, ties to the LOWEST token id.  Slots left
 // over when valid < top_k hold (-1e30, id 0); their softmax weight is
 // exactly 0.
 //
-// What bounds them: the N x valid x CK products.  At the engine's blocked
-// step (N = 8100 queries, valid up to 116,640 tokens, CK = 64) that is
-// 1.2e11 flops against 15 MB of keys, far above the card's flops-per-byte
-// ridge.  Once a query's list is warm few tokens beat its k-th score, but
-// while it fills (the first tiles, and all of a small bank) the serial merge
-// costs more than the products (PERF.md, chip_smoke.py).
+// memory_topk_launch replaces eva_vos_tpu/kernels/memory_topk.py:
+// _kernel_tournament, reached through tournament_topk_t: the default read's
+// selection.  memory_topk_chunked_launch replaces _kernel_tournament_chunked,
+// reached through chunked_topk_t (topk_chunked_kernel, at the end).
 //
-// Design: one block of 8 warps per tile of 32 queries walks the whole bank
-// in 128-token tiles (block_topk).  The loop over tiles stops at `valid`
-// (the TPU kernel's live_blocks rule), so tokens past the bank's fill are
-// never read.  The dot products run on the FMA units, not the tensor cores:
-// right first, fast in a later change.
+// The default selection: pruned bank blocks, merged into [k, N]
+// ------------------------------------------------------------------------
+// What bounds it: not the device-memory bytes (15 MB of keys at fill 72)
+// nor the tensor-core rate (0.12 ms at fill 72, N = 8,100, CK = 64), but
+// the block stage it shares with memory_topk_sort.cu (topk_prune.cuh).
+// Each 16-query block stages its bank block's 256 KB of bf16 keys from L2
+// (0.8 GB at fill 12, 7.6 GB at fill 72, N = 8,100) and then runs one warp
+// per query through the threshold, compaction and ranking passes over 2,048
+// scores; its 197 KB of shared memory allow one block an SM.  The sort
+// kernel's times (PERF.md) put most of the block time in the row passes:
+// their staging runs at ~2.2 TB/s, and top_k = 256, which changes only the
+// row passes, takes several times the block time of top_k = 50.  The
+// previous design (a serial insertion merge per 32-query block, FMA scores)
+// spent its time in the merge while a query's list filled, which is all of
+// a small bank: the frame-0 interact reads banks of 1 to 12 frames.
 //
-// topk_kernel walks the bank oldest first and admits a token when it beats
-// its query's k-th (value, id).  topk_chunked_kernel walks it NEWEST first,
-// from the fill down: propagation queries are temporally next to the latest
-// memories, so the running k-th score tau rises within the first tiles.  It
-// admits a token when its score is >= tau (not >, so a token that ties tau
-// still reaches the insertion, whose (value desc, id asc) rule picks
-// lax.top_k's winner), and a tile in which no query admits anything skips
-// its merge.  Exactness (memory_topk.py:611-618): tau is the k-th best of a
-// subset of the tokens, so tau <= the true k-th score <= the score of any
-// true winner, which is therefore always admitted.  With no_skip every token
-// is admitted and every tile merges (the TPU kernel's sel_notau ablation).
+// Design.  The TPU kernel streams the bank through a running tournament of
+// sorted lists, one per query.  Here the bank blocks are a grid dimension,
+// and no list is kept across them:
+//
+//  1. topk_prune_block_kernel: grid (tiles of 16 queries) x (live 2,048-token
+//     bank blocks; blocks past `valid` are never launched).  The block
+//     scores its tile (bf16 keys by mma.sync on the tensor cores, fp32 keys
+//     on the FP32 units, exactly) and prunes each query's row to the keys at
+//     or above the k-th of its group maxima, with the exact escalation where
+//     they overflow the 512-key list, then ranks them (topk_prune.cuh).
+//     With several live blocks, query q's sorted k keys go to list b of a
+//     buffer part[N, n_live, k] of 64-bit keys.  With ONE live block (up to
+//     2,048 tokens: every first blocked step of an interact) the keys are
+//     the answer: each warp writes them back over its own row of the score
+//     tile, and the block stores them transposed, rows t of [k, N] as
+//     16-query runs; the merge is not launched.
+//  2. topk_merge_t_kernel: 32 queries a block, a half warp per query: lane
+//     h holds the largest head of lists h, h + 16, ...; each output slot is
+//     the half warp's largest head (four shuffle steps of 64-bit keys), and
+//     only the lane whose list it came from advances that list.  The merged
+//     keys are staged in shared memory and stored transposed, each row t of
+//     [k, N] one 128-byte run of the 32 queries' scores (and of their ids):
+//     no [N, k] intermediate and no transpose.
+//
+// The newest-first selection (#4, unchanged)
+// ------------------------------------------
+// What bounds it: the N x valid x CK products on the FMA units, and while a
+// query's list fills, its serial merge.  One block of 8 warps per tile of
+// 32 queries walks the whole bank in 128-token tiles (block_topk,
+// topk_common.cuh), NEWEST first, from the fill down: propagation queries
+// are temporally next to the latest memories, so the running k-th score tau
+// rises within the first tiles.  It admits a token when its score is >= tau
+// (not >, so a token that ties tau still reaches the insertion, whose
+// (value desc, id asc) rule picks lax.top_k's winner), and a tile in which
+// no query admits anything skips its merge.  Exactness
+// (memory_topk.py:611-618): tau is the k-th best of a subset of the tokens,
+// so tau <= the true k-th score <= the score of any true winner, which is
+// therefore always admitted.  With no_skip every token is admitted and
+// every tile merges (the TPU kernel's sel_notau ablation).
 
 #include "topk_common.cuh"
+#include "topk_prune.cuh"
 
 namespace {
 
+using namespace prune;
 using namespace topk;
 
+constexpr int kMergeQ = 32;                  // queries per merge block
+constexpr int kMergeThreads = 16 * kMergeQ;  // a half warp per query
+// Lists the merge takes (4,194,304 tokens): its u16 heads and staged keys
+// fit the shared memory up to here.
+constexpr int kMaxLists = 2048;
+
 template <typename T, int CK>
-__global__ void __launch_bounds__(kThreads, 2)
-topk_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
-            float* __restrict__ out_vals, int* __restrict__ out_idx,
-            int n, int valid, int top_k) {
-  extern __shared__ __align__(16) float smem[];
-  const TopkSmem s = carve(smem, CK, top_k);
-  const int q = blockIdx.x * kQueries + (threadIdx.x & 31);
-  float qv[CK];
-  load_query<T, CK>(qk, q, q < n, qv);
-  block_topk<T, CK>(qv, q < n, mk, 0, valid, top_k, false, kAdmitBeatsList, s);
-  write_lists(s, out_vals, out_idx, n, q, top_k);
+__global__ void __launch_bounds__(kThreads1, 1)
+topk_prune_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
+                        u64* __restrict__ part, float* __restrict__ vals,
+                        int* __restrict__ idx, int n, int valid, int top_k,
+                        int* __restrict__ escalations) {
+  extern __shared__ __align__(16) unsigned tile_smem[];
+  const BlockSmem s = carve_block(tile_smem);
+  const int q0 = blockIdx.x * kQT;
+  const int lo = blockIdx.y * kBlk;
+  score_tile<T, CK>(qk, mk, n, q0, lo, min(lo + kBlk, valid), s);
+
+  const int warp = threadIdx.x >> 5;
+  const int q = q0 + warp;
+  unsigned* row = s.tile + warp * kRowStride;
+  const bool direct = gridDim.y == 1;  // one live block: no merge
+  if (q < n) {
+    u64* out = direct ? reinterpret_cast<u64*>(row)
+                      : part + (static_cast<size_t>(q) * gridDim.y +
+                                blockIdx.y) * top_k;
+    select_row(row, lo, top_k, s.cand + warp * kCap, out, escalations);
+  }
+  if (!direct) return;
+  __syncthreads();
+  const u64* keys = reinterpret_cast<const u64*>(s.tile);
+  for (int e = threadIdx.x; e < top_k * kQT; e += kThreads1) {
+    const int t = e / kQT;
+    const int qq = e % kQT;
+    if (q0 + qq < n) {
+      float v;
+      int id;
+      unpack(keys[qq * (kRowStride / 2) + t], v, id);
+      vals[static_cast<size_t>(t) * n + q0 + qq] = v;
+      idx[static_cast<size_t>(t) * n + q0 + qq] = id;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
+topk_merge_t_kernel(const u64* __restrict__ part, float* __restrict__ vals,
+                    int* __restrict__ idx, int n, int top_k, int n_lists) {
+  // [kMergeQ][stride] merged keys (an odd stride, so that the transposed
+  // reads spread over the banks), then [kMergeQ][n_lists] u16 list heads
+  extern __shared__ __align__(16) u64 merged[];
+  const int stride = top_k | 1;
+  unsigned short* heads =
+      reinterpret_cast<unsigned short*>(merged + kMergeQ * stride);
+  const int hl = threadIdx.x & 15;  // lane in the half warp
+  const int qq = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * kMergeQ;
+  const bool live = q0 + qq < n;
+  unsigned short* head = heads + qq * n_lists;
+  const u64* lists =
+      part + static_cast<size_t>(live ? q0 + qq : 0) * n_lists * top_k;
+  u64* out = merged + qq * stride;
+
+  for (int b = hl; b < n_lists; b += 16) head[b] = 0;
+  __syncwarp();
+  // this lane's largest head and its list (key 0: none left)
+  auto best_head = [&](u64& key, int& list) {
+    key = 0ull;
+    list = 0;
+    if (!live) return;
+    for (int b = hl; b < n_lists; b += 16) {
+      const int h = head[b];
+      const u64 k = h < top_k ? lists[static_cast<size_t>(b) * top_k + h] : 0ull;
+      if (k > key) {
+        key = k;
+        list = b;
+      }
+    }
+  };
+  u64 mine;
+  int list;
+  best_head(mine, list);
+  // both half warps take top_k steps, so the shuffles stay converged
+  for (int t = 0; t < top_k; ++t) {
+    u64 win = mine;
+#pragma unroll
+    for (int off = 8; off; off >>= 1) {
+      const u64 o = __shfl_xor_sync(kFull, win, off);
+      win = o > win ? o : win;
+    }
+    if (hl == 0) out[t] = win;  // 0 once only dead keys are left
+    if (win != 0ull && mine == win) {  // live keys are distinct: one lane
+      ++head[list];
+      best_head(mine, list);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < top_k * kMergeQ; e += kMergeThreads) {
+    const int t = e / kMergeQ;
+    const int j = e % kMergeQ;
+    if (q0 + j < n) {
+      float v;
+      int id;
+      unpack(merged[j * stride + t], v, id);
+      vals[static_cast<size_t>(t) * n + q0 + j] = v;
+      idx[static_cast<size_t>(t) * n + q0 + j] = id;
+    }
+  }
+}
+
+inline size_t merge_smem_bytes(int top_k, int n_lists) {
+  return sizeof(u64) * kMergeQ * static_cast<size_t>(top_k | 1) +
+         sizeof(unsigned short) * kMergeQ * static_cast<size_t>(n_lists);
+}
+
+template <typename T, int CK>
+int launch_pruned(const void* qk, const void* mk, u64* part, float* vals,
+                  int* idx, int n, int valid, int top_k, int n_live,
+                  int* escalations, cudaStream_t stream) {
+  const size_t smem = block_smem_bytes(CK);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_prune_block_kernel<T, CK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kQT - 1) / kQT, n_live);
+  topk_prune_block_kernel<T, CK><<<grid, kThreads1, smem, stream>>>(
+      static_cast<const T*>(qk), static_cast<const T*>(mk), part, vals, idx,
+      n, valid, top_k, escalations);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_live == 1) return static_cast<int>(err);
+  const size_t merge_smem = merge_smem_bytes(top_k, n_live);
+  err = cudaFuncSetAttribute(topk_merge_t_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(merge_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_merge_t_kernel<<<(n + kMergeQ - 1) / kMergeQ, kMergeThreads,
+                        merge_smem, stream>>>(part, vals, idx, n, top_k,
+                                              n_live);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int CK>
@@ -71,45 +230,19 @@ topk_chunked_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
 }
 
 template <typename T, int CK>
-int launch(const void* qk, const void* mk, float* vals, int* idx, int n,
-           int valid, int top_k, int chunked, int no_skip,
-           cudaStream_t stream) {
+int launch_chunked(const void* qk, const void* mk, float* vals, int* idx,
+                   int n, int valid, int top_k, int no_skip,
+                   cudaStream_t stream) {
   const size_t smem = block_topk_smem_bytes(CK, top_k);
   const dim3 grid((n + kQueries - 1) / kQueries);
-  const T* q = static_cast<const T*>(qk);
-  const T* m = static_cast<const T*>(mk);
-  cudaError_t err;
-  if (chunked) {
-    err = cudaFuncSetAttribute(topk_chunked_kernel<T, CK>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    topk_chunked_kernel<T, CK><<<grid, kThreads, smem, stream>>>(
-        q, m, vals, idx, n, valid, top_k, no_skip);
-  } else {
-    err = cudaFuncSetAttribute(topk_kernel<T, CK>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    topk_kernel<T, CK><<<grid, kThreads, smem, stream>>>(q, m, vals, idx, n,
-                                                         valid, top_k);
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_chunked_kernel<T, CK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_chunked_kernel<T, CK><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qk), static_cast<const T*>(mk), vals, idx, n,
+      valid, top_k, no_skip);
   return static_cast<int>(cudaGetLastError());
-}
-
-int dispatch(const void* qk, const void* mk, void* vals, void* idx, int n,
-             int valid, int ck, int top_k, int is_bf16, int chunked,
-             int no_skip, void* stream) {
-  float* v = static_cast<float*>(vals);
-  int* i = static_cast<int*>(idx);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return 0;
-  if (ck != 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16) {
-    return launch<__nv_bfloat16, 64>(qk, mk, v, i, n, valid, top_k, chunked,
-                                     no_skip, s);
-  }
-  return launch<float, 64>(qk, mk, v, i, n, valid, top_k, chunked, no_skip, s);
 }
 
 }  // namespace
@@ -118,21 +251,48 @@ extern "C" {
 
 // qk [n, ck], mk [m >= valid, ck] row-major, 16-byte aligned, fp32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1), ck = 64 (the STCN key width);
-// vals/idx [top_k, n].  Returns a cudaError_t code.
+// vals/idx [top_k, n]; 1 <= top_k <= 256.  part: [n, n_live, top_k] 64-bit
+// scratch, n_live = max(1, ceil(valid / 2048)) <= 2,048, or null when
+// n_live = 1 (no merge).  escalations: null, or one int32 on the device that
+// counts the (query, bank block) rows that escalated.  Returns a cudaError_t
+// code.
 int memory_topk_launch(const void* qk, const void* mk, void* vals, void* idx,
                        int n, int valid, int ck, int top_k, int is_bf16,
-                       void* stream) {
-  return dispatch(qk, mk, vals, idx, n, valid, ck, top_k, is_bf16, 0, 0,
-                  stream);
+                       void* stream, void* part, void* escalations) {
+  if (n <= 0) return 0;
+  const int n_live = live_blocks(valid);
+  if (ck != 64 || top_k < 1 || top_k > 256 || n_live > kMaxLists ||
+      (n_live > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  u64* p = static_cast<u64*>(part);
+  float* v = static_cast<float*>(vals);
+  int* i = static_cast<int*>(idx);
+  int* e = static_cast<int*>(escalations);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch_pruned<__nv_bfloat16, 64>(qk, mk, p, v, i, n, valid, top_k,
+                                            n_live, e, s);
+  }
+  return launch_pruned<float, 64>(qk, mk, p, v, i, n, valid, top_k, n_live,
+                                  e, s);
 }
 
 // The newest-first selection with the tau skip (no_skip = 1 disables it);
-// the same operands and outputs as memory_topk_launch.
+// qk, mk, vals and idx as for memory_topk_launch.
 int memory_topk_chunked_launch(const void* qk, const void* mk, void* vals,
                                void* idx, int n, int valid, int ck, int top_k,
                                int no_skip, int is_bf16, void* stream) {
-  return dispatch(qk, mk, vals, idx, n, valid, ck, top_k, is_bf16, 1, no_skip,
-                  stream);
+  if (n <= 0) return 0;
+  if (ck != 64) return static_cast<int>(cudaErrorInvalidValue);
+  float* v = static_cast<float*>(vals);
+  int* i = static_cast<int*>(idx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch_chunked<__nv_bfloat16, 64>(qk, mk, v, i, n, valid, top_k,
+                                             no_skip, s);
+  }
+  return launch_chunked<float, 64>(qk, mk, v, i, n, valid, top_k, no_skip, s);
 }
 
 const char* memory_topk_error_string(int status) {

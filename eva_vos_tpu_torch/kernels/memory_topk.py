@@ -4,7 +4,10 @@ versions.
 Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
 
 * :func:`topk_select` — ``tournament_topk_t`` (``_kernel_tournament``),
-  kernel ``csrc/memory_topk.cu:topk_kernel``;
+  per-block pruning and ranking as in the sort kernel (the shared
+  ``csrc/topk_prune.cuh``), then a merge that writes the transposed layout,
+  kernels ``csrc/memory_topk.cu:topk_prune_block_kernel`` and
+  ``topk_merge_t_kernel``; :func:`merge_lists_t` states the merge;
 * :func:`topk_select_chunked` — ``chunked_topk_t``
   (``_kernel_tournament_chunked``), newest first with the tau skip, kernel
   ``csrc/memory_topk.cu:topk_chunked_kernel``;
@@ -56,7 +59,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SPLITS = 16      # memory_topk_grid.cu's kMaxSplits
 _SPLIT_UNIT = 128     # bank tokens per staged tile
 _TARGET_BLOCKS = 264  # two 256-thread selection blocks on each of 132 SMs
-_SELECT_BLOCK = 2048  # bank tokens per block of the iterative and sort kernels
+_SELECT_BLOCK = 2048  # bank tokens per block of the block selections
+_MAX_LISTS = 2048     # memory_topk.cu's kMaxLists: bank blocks it merges
 
 
 def topk_select_plain(qk, mk, valid_tokens, top_k: int):
@@ -77,7 +81,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _bind("memory_topk", "memory_topk_launch", [_P] * 4 + [_I] * 5 + [_P])
+    lib = _bind("memory_topk", "memory_topk_launch",
+                [_P] * 4 + [_I] * 5 + [_P] * 3)
     lib.memory_topk_chunked_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P]
     lib.memory_topk_chunked_launch.restype = ctypes.c_int
     return lib
@@ -166,16 +171,30 @@ def _row_selection_plain(qk, mk, valid_tokens, top_k: int, return_raw: bool):
 
 
 def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
-                top_k: int):
-    """Top-k selection, bank oldest first (plain: topk_select_plain)."""
+                top_k: int, escalations: torch.Tensor | None = None):
+    """Top-k selection by pruning each bank block's scores (as
+    :func:`topk_select_sort`) and merging the blocks' sorted lists into the
+    transposed outputs; with one live block the block kernel writes them
+    and no merge runs (plain: topk_select_plain).  ``escalations``, a CUDA
+    int32 tensor of one element, gains the number of (query, bank block)
+    rows that took the exact escalation."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
+    _check_counter(escalations, qk)
+    n, n_live = qk.shape[0], _live_blocks(valid)
+    if n_live > _MAX_LISTS:
+        raise ValueError(f"{valid} valid tokens exceed the selection's "
+                         f"{_MAX_LISTS * _SELECT_BLOCK}")
     vals, idx = _transposed_outputs(qk, top_k)
+    part = (torch.empty((n, n_live, top_k), dtype=torch.int64,
+                        device=qk.device) if n_live > 1 else None)
     lib = _lib()
     status = lib.memory_topk_launch(
-        qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        qk.shape[0], valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk))
+        qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(), n,
+        valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk),
+        None if part is None else part.data_ptr(),
+        None if escalations is None else escalations.data_ptr())
     build.check("memory_topk", lib, status)
     topk_select.launches += 1
     return vals, idx
@@ -260,8 +279,9 @@ def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
 
 
 def _live_blocks(valid: int) -> int:
-    """Bank blocks of the iterative and sort kernels below the fill (one
-    at least, so that an empty bank still writes its -1e30 slots)."""
+    """Bank blocks of the block selections below the fill (one at least, so
+    that an empty bank still writes its -1e30 slots).  With one, the default
+    selection writes its outputs from the block kernel: no merge."""
     return max(1, -(-valid // _SELECT_BLOCK))
 
 
@@ -354,6 +374,29 @@ def sort_prune_threshold(keys: torch.Tensor, top_k: int,
     maxima = bits.unflatten(-1, (-1, groups)).amax(-2)
     tau = maxima.topk(top_k, dim=-1).values[..., -1]
     return tau.clamp(min=1 - 2 ** 31) * 2 ** 32
+
+
+def unpack_keys(keys: torch.Tensor):
+    """Keys (:func:`sort_keys`) -> (fp32 scores, int32 ids); a key with the
+    score bits 0 (dead) -> (-1e30, 0), as the kernels write it."""
+    order = (keys >> 32) + 2 ** 31
+    bits = torch.where(order >= 2 ** 31, order & 0x7FFFFFFF, order ^ 0xFFFFFFFF)
+    scores = bits.to(torch.int32).view(torch.float32)
+    ids = (~keys & 0xFFFFFFFF).to(torch.int32)
+    dead = order == 0
+    return (torch.where(dead, torch.full_like(scores, -1e30), scores),
+            torch.where(dead, torch.zeros_like(ids), ids))
+
+
+def merge_lists_t(lists: torch.Tensor, top_k: int):
+    """Plain statement of the default selection's merge: per query the
+    top_k largest keys of its bank blocks' sorted lists [N, blocks, k]
+    (keys are distinct), unpacked to the transposed (vals [top_k, N],
+    idx [top_k, N]).  With one block the list itself is the answer, which
+    the block kernel writes with no merge."""
+    merged = lists.flatten(1).topk(top_k, dim=1).values
+    vals, idx = unpack_keys(merged)
+    return vals.T.contiguous(), idx.T.contiguous()
 
 
 for _fn in (topk_select, topk_select_chunked, topk_select_resident,

@@ -30,7 +30,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 GROUPS = (  # first match wins; lower-case substrings of kernel names
-    ("memory_topk kernel", ("topk_kernel",)),
+    ("memory_topk kernels", ("topk_prune_block_kernel", "topk_merge_t_kernel")),
     ("memory_topk chunked kernel", ("topk_chunked_kernel",)),
     ("memory_topk_resident kernel", ("topk_resident_kernel",)),
     ("memory_topk_grid kernels", ("topk_split_kernel", "topk_merge_kernel")),

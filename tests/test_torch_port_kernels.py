@@ -36,6 +36,7 @@ from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
 from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
 from eva_vos_tpu_torch.ops.memory_attention import (_scores,
                                                     memory_affinity_topk,
+                                                    softmax_weights,
                                                     topk_scores)
 
 
@@ -137,8 +138,22 @@ def test_selection_variants_tie_to_lowest_id(cuda, variant, dtype):
                                   _oracle_topk(qk, mk, 1990, 50))
 
 
-# the row selectors of select_topk's 'iterative' and 'sort' methods
-ROW_SELECTORS = {"iterative": topk_select_iter, "sort": topk_select_sort}
+def _tournament_rows(qk, mk, valid, top_k, return_raw=False,
+                     escalations=None):
+    """The default selection (topk_select, transposed [k, N]) as rows."""
+    vals, idx = topk_select(qk, mk, valid, top_k, escalations=escalations)
+    vals, idx = vals.T, idx.T
+    return (vals if return_raw else softmax_weights(vals)), idx
+
+
+# the block selections as rows: select_topk's 'iterative' and 'sort'
+# methods, and the default read's selection, which shares the sort kernel's
+# block stage; and the wrapper that counts each one's launches
+ROW_SELECTORS = {"iterative": topk_select_iter, "sort": topk_select_sort,
+                 "tournament": _tournament_rows}
+COUNTED = {"iterative": topk_select_iter, "sort": topk_select_sort,
+           "tournament": topk_select}
+PRUNED = ("sort", "tournament")  # the selections with the pruned block stage
 FRAME_TOKENS = 30 * 54  # key tokens of one 480x864 frame
 
 
@@ -171,10 +186,11 @@ def _overflowing_rows(qk, mk, valid, top_k):
 
 
 def _escalations(method, device):
-    """The sort kernel's counter of escalated rows (a one-element zero)
-    and the keyword that hands it over; no keyword for other methods."""
+    """The pruned block stage's counter of escalated rows (a one-element
+    zero) and the keyword that hands it over; no keyword for the iterative
+    kernel."""
     esc = torch.zeros(1, dtype=torch.int32, device=device)
-    return esc, ({"escalations": esc} if method == "sort" else {})
+    return esc, ({"escalations": esc} if method in PRUNED else {})
 
 
 @pytest.mark.cuda
@@ -183,19 +199,20 @@ def _escalations(method, device):
 @pytest.mark.parametrize("n", [FRAME_TOKENS, 333])
 @pytest.mark.parametrize("fill", [1, 12, 72])
 def test_row_selection_kernels_at_bank_fills(cuda, method, dtype, n, fill):
-    """The iterative and sort kernels at the engine's bank fills (1, 12 and
-    72 frames of 1,620 tokens) in a 72-frame bank, N = 1,620 and ragged."""
+    """The block selections at the engine's bank fills (1, 12 and 72 frames
+    of 1,620 tokens) in a 72-frame bank, N = 1,620 and ragged; fill 1 is one
+    live bank block, which the default selection writes with no merge."""
     fn = ROW_SELECTORS[method]
     g = torch.Generator(device=cuda).manual_seed(fill)
     qk = torch.randn((n, 64), generator=g, device=cuda).to(dtype)
     mk = torch.randn((72 * FRAME_TOKENS, 64), generator=g, device=cuda).to(
         dtype)
     valid = fill * FRAME_TOKENS
-    before = fn.launches
+    before = COUNTED[method].launches
     esc, kw = _escalations(method, cuda)
     vals, idx = fn(qk, mk, valid, 50, return_raw=True, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert COUNTED[method].launches == before + 1
     assert vals.shape == idx.shape == (n, 50) and idx.dtype == torch.int32
     pv, pi = topk_scores(mk, qk, 50, valid)
     _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
@@ -254,36 +271,40 @@ def test_row_selection_kernels_exact_ties(cuda, method, dtype, top_k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method", PRUNED)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("top_k", [50, 256])
-def test_sort_kernel_identical_keys(cuda, dtype, top_k):
+def test_sort_kernel_identical_keys(cuda, method, dtype, top_k):
     """Every token the same key: all scores of a row tie, so the threshold
     (on scores) admits all 2,048 keys of a block, more than the candidate
     list holds.  Every (query, block) row of the two full blocks takes the
     exact escalation (the third, 404 tokens, fits), which splits the tie by
-    id: the ids are the lowest, as the plain version's."""
+    id: the ids are the lowest, as the plain version's.  The default
+    selection shares the block stage."""
     rng = np.random.default_rng(8)
     mk = torch.from_numpy(np.tile(rng.standard_normal((1, 64)), (5000, 1))
                           .astype(np.float32)).to(cuda, dtype)
     qk = torch.from_numpy(rng.standard_normal((45, 64)).astype(np.float32)
                           ).to(cuda, dtype)
     esc = torch.zeros(1, dtype=torch.int32, device=cuda)
-    _, idx = topk_select_sort(qk, mk, 4500, top_k, escalations=esc)
+    _, idx = ROW_SELECTORS[method](qk, mk, 4500, top_k, escalations=esc)
     want = torch.arange(top_k, dtype=torch.int32, device=cuda)
     assert torch.equal(idx, want.expand(45, top_k))
     assert int(esc) == 45 * 2
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method", PRUNED)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("top_k", [50, 64, 100, 256])
-def test_sort_kernel_escalation(cuda, dtype, top_k):
+def test_sort_kernel_escalation(cuda, method, dtype, top_k):
     """Winners packed into few groups: tokens with (t mod 128) < 40 lie near
     every query and the rest far away, so the 40 of each 128 column groups
     hold 640 keys of a block's row above the threshold, more than the
     kernel's candidate list (512).  Every row of the first, full bank block
     escalates to the exact bisection (the second block, 952 tokens, keeps
-    320 near tokens and fits); the result stays exact."""
+    320 near tokens and fits); the result stays exact, and the default
+    selection, which shares the block stage, escalates the same rows."""
     rng = np.random.default_rng(9)
     u = rng.standard_normal(64)
     near = (np.arange(3000) % 128) < 40
@@ -292,8 +313,8 @@ def test_sort_kernel_escalation(cuda, dtype, top_k):
     mk = torch.from_numpy(mk.astype(np.float32)).to(cuda, dtype)
     qk = torch.from_numpy(qk.astype(np.float32)).to(cuda, dtype)
     esc = torch.zeros(1, dtype=torch.int32, device=cuda)
-    vals, idx = topk_select_sort(qk, mk, 3000, top_k, return_raw=True,
-                                 escalations=esc)
+    vals, idx = ROW_SELECTORS[method](qk, mk, 3000, top_k, return_raw=True,
+                                      escalations=esc)
     assert int(esc) == _overflowing_rows(qk, mk, 3000, top_k) == 77
     # 640 near tokens crowd each row's scores: compare up to near-ties,
     # across the last slot too
@@ -349,34 +370,48 @@ def test_build_raises_without_nvcc():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("valid", [3000, 1700, 20])
-def test_topk_select_kernel(cuda, dtype, valid):
+@pytest.mark.parametrize("valid,top_k", [
+    (3000, 50), (1700, 50), (20, 50), (2048, 64), (5000, 100), (5000, 256),
+    (20, 256)])
+def test_topk_select_kernel(cuda, dtype, valid, top_k):
+    """The transposed [k, N] contract: one live bank block (1,700 and 2,048
+    tokens: no merge), a fill ending mid-block (3,000), three blocks, and
+    fewer valid tokens than top_k; no random row escalates.  The kernel sums
+    |k|^2 and the products in another order than the plain version, so ids
+    may differ only at near-ties (as for the sort kernel's tests)."""
     g = torch.Generator(device=cuda).manual_seed(valid)
     qk = torch.randn((300, 64), generator=g, device=cuda).to(dtype)
-    mk = torch.randn((3000, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((5000, 64), generator=g, device=cuda).to(dtype)
     before = topk_select.launches
-    vals, idx = topk_select(qk, mk, valid, 50)
+    esc = torch.zeros(1, dtype=torch.int32, device=cuda)
+    vals, idx = topk_select(qk, mk, valid, top_k, escalations=esc)
     torch.cuda.synchronize()
     assert topk_select.launches == before + 1
-    pv, pi = topk_select_plain(qk, mk, valid, 50)
-    live = min(valid, 50)
-    torch.testing.assert_close(vals[:live], pv[:live], rtol=0, atol=1e-4)
-    assert torch.equal(idx[:live], pi[:live])
+    assert vals.shape == idx.shape == (top_k, 300) and idx.dtype == torch.int32
+    assert int(esc) == 0
+    pv, pi = topk_select_plain(qk, mk, valid, top_k + 1)
+    live = min(valid, top_k)
+    _assert_same_selection(vals[:live].T, idx[:live].T, pv[:live + 1].T,
+                           pi[:live + 1].T, 1e-4)
     assert torch.all(vals[live:] == -1e30)
     assert int(idx.min()) >= 0 and int(idx.max()) < valid
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_topk_select_kernel_ties_to_lowest_id(cuda, dtype):
+@pytest.mark.parametrize("valid", [1990, 4990])
+@pytest.mark.parametrize("top_k", [50, 256])
+def test_topk_select_kernel_ties_to_lowest_id(cuda, dtype, valid, top_k):
+    """Each of 40 keys 125 times over the bank: within one bank block
+    (1,990 tokens) and across the merge of three (4,990)."""
     rng = np.random.default_rng(2)
     base = rng.standard_normal((40, 64)).astype(np.float32)
-    mk = torch.from_numpy(np.tile(base, (50, 1))).to(cuda, dtype)
+    mk = torch.from_numpy(np.tile(base, (125, 1))).to(cuda, dtype)
     qk = torch.from_numpy(rng.standard_normal((70, 64)).astype(np.float32)
                           ).to(cuda, dtype)
-    _, idx = topk_select(qk, mk, 1990, 50)
+    _, idx = topk_select(qk, mk, valid, top_k)
     np.testing.assert_array_equal(idx.cpu().numpy(),
-                                  _oracle_topk(qk, mk, 1990, 50))
+                                  _oracle_topk(qk, mk, valid, top_k))
 
 
 @pytest.mark.cuda

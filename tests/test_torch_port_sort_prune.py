@@ -13,6 +13,12 @@ Where the survivors stay within the kernel's candidate list (random rows) and
 where they overflow it (winners packed into fewer than k groups, the case
 that takes the kernel's exact bisection) is checked too, since the card's
 tests rely on both.  Comparisons are exact: keys are integers.
+
+The default selection (``memory_topk.cu``) runs the same block stage and
+merges the blocks' sorted lists into the transposed [k, N] outputs; with one
+live block it writes the block's list and merges nothing.  Its plain
+statement, ``merge_lists_t`` over the rule's per-block lists, is held to the
+plain selection.
 """
 
 import numpy as np
@@ -20,11 +26,17 @@ import pytest
 import torch
 
 from eva_vos_tpu_torch.kernels.memory_topk import _SELECT_BLOCK as BLOCK
-from eva_vos_tpu_torch.kernels.memory_topk import (SORT_CAPACITY, sort_keys,
+from eva_vos_tpu_torch.kernels.memory_topk import (SORT_CAPACITY,
+                                                   _live_blocks, merge_lists_t,
+                                                   sort_keys,
                                                    sort_prune_groups,
-                                                   sort_prune_threshold)
+                                                   sort_prune_threshold,
+                                                   topk_select_plain,
+                                                   unpack_keys)
+from eva_vos_tpu_torch.ops.memory_attention import _scores
 
 LIVE_FLOOR = -2 ** 63 + 2 ** 32  # the least live key, shifted as sort_keys
+DEAD = -2 ** 63                   # the kernels' key 0 (a list's empty slot)
 
 
 def _rows(kind: str, rows: int, seed: int) -> np.ndarray:
@@ -129,3 +141,57 @@ def test_keys_order_as_score_desc_id_asc():
     assert order.tolist() == [7, 4, 5, 0, 2, 1, 3, 6]
     dead = sort_keys(scores, ids, torch.zeros(8, dtype=torch.bool))
     assert (dead < LIVE_FLOOR).all() and (keys >= LIVE_FLOOR).all()
+
+
+def _block_lists(qk, mk, valid: int, top_k: int) -> torch.Tensor:
+    """The block stage's sorted lists [N, blocks, top_k]: per live 2,048-token
+    bank block, the top_k keys at or above the pruning threshold, empty
+    slots DEAD."""
+    blocks = _live_blocks(valid)
+    scores = torch.zeros((qk.shape[0], blocks * BLOCK))
+    m = min(mk.shape[0], blocks * BLOCK)
+    scores[:, :m] = _scores(mk, qk, valid)[:, :m]
+    ids = torch.arange(blocks * BLOCK).expand_as(scores)
+    keys = sort_keys(scores, ids, ids < valid).unflatten(-1, (blocks, BLOCK))
+    tau = sort_prune_threshold(keys, top_k)
+    kept = torch.where(keys >= tau[..., None], keys, torch.full_like(keys, DEAD))
+    return kept.topk(top_k, dim=-1).values
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("valid,top_k", [
+    (0, 50), (20, 50), (1620, 50), (2048, 64), (2049, 50), (3000, 100),
+    (5000, 50), (5000, 256)])
+def test_block_lists_merged_transposed_are_the_plain_selection(kind, valid,
+                                                               top_k):
+    """Blocks of one live bank block (no merge: the list is the answer), a
+    second block of one token, fills ending mid-block, fewer valid tokens
+    than k, and exact ties (each key 40 times over the bank): the merged
+    lists give the plain selection's scores and ids, -1e30 past the fill."""
+    rng = np.random.default_rng(valid + top_k)
+    if kind == "random":
+        mk = rng.standard_normal((5000, 64))
+    else:
+        mk = np.tile(rng.standard_normal((125, 64)), (40, 1))
+    mk = torch.from_numpy(mk.astype(np.float32))
+    qk = torch.from_numpy(rng.standard_normal((6, 64)).astype(np.float32))
+    lists = _block_lists(qk, mk, valid, top_k)
+    if _live_blocks(valid) == 1:
+        vals, idx = unpack_keys(lists[:, 0])
+        assert torch.equal(merge_lists_t(lists, top_k)[0], vals.T)
+    vals, idx = merge_lists_t(lists, top_k)
+    want_v, want_i = topk_select_plain(qk, mk, valid, top_k)
+    live = min(valid, top_k)
+    assert vals.shape == idx.shape == (top_k, 6) and idx.dtype == torch.int32
+    assert torch.equal(vals[:live], want_v[:live])
+    assert torch.equal(idx[:live], want_i[:live])
+    assert (vals[live:] == -1e30).all() and (idx[live:] == 0).all()
+
+
+def test_unpack_keys_inverts_sort_keys():
+    scores = torch.tensor([1.0, 0.0, -2.5, 3.0, -1e30, 1e30, 7.25e-3])
+    ids = torch.tensor([0, 5, 7, 2 ** 31 - 1, 3, 12, 40000])
+    vals, got = unpack_keys(sort_keys(scores, ids, torch.ones(7, dtype=torch.bool)))
+    assert torch.equal(vals, scores) and torch.equal(got, ids.to(torch.int32))
+    dead_v, dead_i = unpack_keys(torch.full((3,), DEAD))
+    assert (dead_v == -1e30).all() and (dead_i == 0).all()
