@@ -8,23 +8,27 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
 2. build the CUDA kernels from ``eva_vos_tpu_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once); print each kernel's registers and
    spills, and the HMMA (tensor-core) instructions in the SASS of the
-   default and the sort selections (``cuobjdump``);
+   libraries of the pruned selections (``cuobjdump``): the default and
+   newest-first (``memory_topk``), the 'select' read's (``memory_topk_grid``)
+   and the sort selection's;
 3. the six top-k selection kernels (oldest first, newest first with the
-   tau skip, two-pass resident, split bank, and through ``select_topk``
-   iterative extraction, its default, and per-block sort) against their
-   plain versions at the engine's blocked-step shape (N = 5 x 1620 queries,
-   CK = 64, top_k = 50, bf16) on banks of 1, 12 and 72 slots of 1620
-   tokens, random and clustered; all but the newest-first and resident
-   kernels also at a single-frame step (N = 1620).  The library yardstick
-   of every selection is the dense score product as one ``torch.addmm``
-   (TF32 off and on, the faster kept) and ``torch.topk`` together
-   (``torch.topk`` alone on the plain scores is printed as ``topk_only``).
-   For the default (oldest-first) selection and the sort kernel also their
+   running floor, two-pass resident, the 'select' read's, and through
+   ``select_topk`` iterative extraction, its default, and per-block sort)
+   against their plain versions at the engine's blocked-step shape
+   (N = 5 x 1620 queries, CK = 64, top_k = 50, bf16) on banks of 1, 12 and
+   72 slots of 1620 tokens, random and clustered; all but the resident
+   kernel also at a single-frame step (N = 1620).  The newest-first
+   selection is also checked and timed with ``no_skip`` (its floor off).
+   The library yardstick of every selection is the dense score product as
+   one ``torch.addmm`` (TF32 off and on, the faster kept) and ``torch.topk``
+   together (``torch.topk`` alone on the plain scores is printed as
+   ``topk_only``).  For the selections on the pruned block stage also their
    block and merge kernels' device times (``torch.profiler``; with one live
-   bank block the default selection launches no merge) and the rows that
-   took their exact escalation, and, on the 72-slot clustered bank at
-   N = 8100, the sort kernel at top_k = 256, where each row keeps more
-   candidates than the kernel ranks one by one;
+   bank block no merge is launched), the rows that took their exact
+   escalation and, for the newest-first one, the rows its floor emptied;
+   and, on the 72-slot clustered bank at N = 8100, the sort kernel at
+   top_k = 256, where each row keeps more candidates than the kernel ranks
+   one by one;
 4. the two readout kernels against their plain version (K = 1 and 2,
    CV = 512) on the oldest-first selections of phase 3;
 5. the selection entry point ``select_topk`` at N = 8100 on a 72-slot
@@ -94,10 +98,13 @@ READOUT_RTOL, READOUT_ATOL = 2 ** -7, 2e-2
 PROB_ATOL, PROB_FRAC = 5e-2, 1e-3
 
 
-# the block and merge kernels of the selections timed one by one
+# the block and merge kernels of the selections timed one by one: those
+# of the pruned block stage (the transposed and the row-output kernels)
 SPLIT_KERNELS = {
     "memory_topk": ("topk_prune_block_kernel", "topk_merge_t_kernel"),
-    "memory_topk_sort": ("topk_sort_block_kernel", "topk_sort_merge_kernel")}
+    "memory_topk_chunked": ("topk_prune_block_kernel", "topk_merge_t_kernel"),
+    "memory_topk_grid": ("topk_rows_block_kernel", "topk_rows_merge_kernel"),
+    "memory_topk_sort": ("topk_rows_block_kernel", "topk_rows_merge_kernel")}
 # the sort kernel's largest top_k: ~300 keys of a row survive its pruning,
 # more than it ranks one by one, so it sorts them in a warp
 SORT_WIDE_K = 256
@@ -105,7 +112,7 @@ SORT_WIDE_K = 256
 # the selections that return [N, k] rows (softmax weights by default)
 ROW_SELECTIONS = ("memory_topk_grid", "memory_topk_iter", "memory_topk_sort")
 # the selections also checked and timed at a single-frame step (N = 1620)
-SINGLE_FRAME = ("memory_topk",) + ROW_SELECTIONS
+SINGLE_FRAME = ("memory_topk", "memory_topk_chunked") + ROW_SELECTIONS
 # select_topk's arguments that reach each entry-point kernel: no method for
 # its default, the iterative kernel
 ENTRY_KWARGS = {"memory_topk_iter": {}, "memory_topk_sort": {"method": "sort"}}
@@ -306,6 +313,33 @@ def sort_wide_case(torch, q, mk, valid, esc):
     return row
 
 
+def no_skip_case(torch, q, mk, valid, sel, chunked_counted, esc, floored,
+                 rows: int, label: str) -> dict:
+    """The newest-first selection with its floor off (``no_skip``, the JAX
+    ``sel_notau`` ablation) on one case: the same output as with the floor,
+    bit for bit (the same scores, an exact selection either way), no row
+    floored; timed with its block and merge split."""
+    from eva_vos_tpu_torch.kernels import topk_select_chunked
+    from eva_vos_tpu_torch.kernels.memory_topk import _SELECT_BLOCK
+
+    esc.zero_()
+    floored.zero_()
+    vals, idx = chunked_counted(q, mk, valid, TOP_K, no_skip=True)
+    if not (torch.equal(vals, sel[0]) and torch.equal(idx, sel[1])):
+        fail(f"{label} no_skip: differs from the selection with the floor")
+    if int(floored.item()):
+        fail(f"{label} no_skip: the floor emptied rows")
+    timed = lambda: topk_select_chunked(q, mk, valid, TOP_K, no_skip=True)
+    out = dict(ms=cuda_ms(torch, timed, 10), escalated_rows=int(esc.item()),
+               **split_ms(torch, timed, "memory_topk_chunked",
+                          merged=valid > _SELECT_BLOCK))
+    print(f"[select] {label} no_skip: equal to the floor's; kernel "
+          f"{out['ms']:.3f} ms, block kernel {out['block_ms']:.3f} ms + merge "
+          f"kernel {out['merge_ms']:.3f} ms, escalated rows "
+          f"{out['escalated_rows']} of {rows}", flush=True)
+    return out
+
+
 def readout_bound(idx, k_obj: int):
     """Bound of the readout: each distinct selected row once per object,
     the selection once, the output once; 2 flops per gathered element."""
@@ -335,16 +369,22 @@ def kernel_phases(torch, results):
     mv2 = torch.randn((2, max(FILLS) * HW_TOKENS, CV), generator=gen,
                       device=dev).to(torch.bfloat16)
     esc = torch.zeros(1, dtype=torch.int32, device=dev)
+    floored = torch.zeros(1, dtype=torch.int32, device=dev)
     sel_rows, ro_rows = [], []
 
     def topk_counted(q, mk, valid, top_k):
         return topk_select(q, mk, valid, top_k, escalations=esc)
 
+    def chunked_counted(q, mk, valid, top_k, no_skip=False):
+        return topk_select_chunked(q, mk, valid, top_k, no_skip=no_skip,
+                                   escalations=esc, floored_rows=floored)
+
     def resident_counted(q, mk, valid, top_k):
         return topk_select_resident(q, mk, valid, top_k, escalations=esc)
 
     def grid_transposed(q, mk, valid, top_k):
-        vals, idx = topk_select_grid(q, mk, valid, top_k, return_raw=True)
+        vals, idx = topk_select_grid(q, mk, valid, top_k, return_raw=True,
+                                     escalations=esc)
         return vals.T, idx.T
 
     def iter_transposed(q, mk, valid, top_k):
@@ -364,7 +404,7 @@ def kernel_phases(torch, results):
     selectors = (
         ("memory_topk", topk_counted,
          lambda q, mk, valid: topk_select(q, mk, valid, TOP_K)),
-        ("memory_topk_chunked", topk_select_chunked,
+        ("memory_topk_chunked", chunked_counted,
          lambda q, mk, valid: topk_select_chunked(q, mk, valid, TOP_K)),
         ("memory_topk_resident", resident_counted,
          lambda q, mk, valid: topk_select_resident(q, mk, valid, TOP_K)),
@@ -393,14 +433,23 @@ def kernel_phases(torch, results):
                 affinity_ms = cuda_ms(
                     torch, lambda: memory_affinity_topk(mk, q, TOP_K, valid), 3)
                 bound, by = selection_bound(n, valid)
+                rows = n * -(-valid // _SELECT_BLOCK)
                 for name, select, timed in selectors:
                     if n != N_QUERIES and name not in SINGLE_FRAME:
                         continue
                     esc.zero_()
+                    floored.zero_()
                     vals, idx = select(q, mk, valid, TOP_K)
                     label = f"{name} {case} N={n}"
                     err, n_diff = check_selection(torch, vals, idx, ref_vals,
                                                   ref_idx, label)
+                    if name == "memory_topk":
+                        default_sel = (vals, idx)
+                    elif name == "memory_topk_chunked" and not (
+                            torch.equal(vals, default_sel[0])
+                            and torch.equal(idx, default_sel[1])):
+                        # the same scores, and an exact selection either way
+                        fail(f"{label}: differs from the default selection")
                     if name in ROW_SELECTIONS:
                         w, wi = timed(q, mk, valid)
                         if not torch.equal(wi.T, idx) or not torch.allclose(
@@ -421,16 +470,21 @@ def kernel_phases(torch, results):
                         row["escalated_blocks"] = int(esc.item())
                         note = f", escalated blocks {row['escalated_blocks']}"
                     elif name in SPLIT_KERNELS:
-                        rows = n * -(-valid // _SELECT_BLOCK)
                         row.update(split_ms(
                             torch, lambda: timed(q, mk, valid), name,
-                            merged=(name == "memory_topk_sort"
-                                    or valid > _SELECT_BLOCK)),
+                            merged=valid > _SELECT_BLOCK),
                             escalated_rows=int(esc.item()), rows=rows)
                         note = (f", block kernel {row['block_ms']:.3f} ms + "
                                 f"merge kernel {row['merge_ms']:.3f} ms, "
                                 f"escalated rows {row['escalated_rows']} of "
                                 f"{rows} ({row['escalated_rows'] / rows:.2e})")
+                    if name == "memory_topk_chunked":
+                        row["floored_rows"] = int(floored.item())
+                        note += (f", floored rows {row['floored_rows']} of "
+                                 f"{rows}")
+                        row["no_skip"] = no_skip_case(
+                            torch, q, mk, valid, (vals, idx), chunked_counted,
+                            esc, floored, rows, label)
                     sel_rows.append(row)
                     print(f"[select] {label}: max|dv|={err:.3g} ids_differ="
                           f"{n_diff} kernel {ms:.3f} ms, plain "
@@ -738,7 +792,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
     hmma = {}
-    for name in SPLIT_KERNELS:
+    for name in sorted({SOURCES[k].removesuffix(".cu") for k in SPLIT_KERNELS}):
         hmma[name] = hmma_count(build, name)
         print(f"[sass] {name}: " + (
             "cuobjdump not found" if hmma[name] is None else

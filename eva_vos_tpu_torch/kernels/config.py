@@ -31,8 +31,8 @@ class KernelConfig(NamedTuple):
     sel_method: Optional[str] = None      # tournament | chunked | resident
     readout_method: Optional[str] = None  # grid | chunked
     sel_notau: Optional[bool] = None      # ablation: no running-tau skip
-    #   (the chunked selector's; the tournament and resident kernels of
-    #   the port have no tau skip to turn off)
+    #   (the chunked selector's running floor, the port's counterpart of
+    #   the tau skip; the tournament and resident kernels have none)
     readout_noskip: Optional[bool] = None  # ablation: no chunk skip
 
     @classmethod

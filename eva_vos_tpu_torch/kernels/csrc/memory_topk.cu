@@ -8,7 +8,8 @@
 // memory_topk_launch replaces eva_vos_tpu/kernels/memory_topk.py:
 // _kernel_tournament, reached through tournament_topk_t: the default read's
 // selection.  memory_topk_chunked_launch replaces _kernel_tournament_chunked,
-// reached through chunked_topk_t (topk_chunked_kernel, at the end).
+// reached through chunked_topk_t: the chunked read's selection, the same
+// function read newest first.  Both run the two kernels below.
 //
 // The default selection: pruned bank blocks, merged into [k, N]
 // ------------------------------------------------------------------------
@@ -50,29 +51,39 @@
 //     [k, N] one 128-byte run of the 32 queries' scores (and of their ids):
 //     no [N, k] intermediate and no transpose.
 //
-// The newest-first selection (#4, unchanged)
-// ------------------------------------------
-// What bounds it: the N x valid x CK products on the FMA units, and while a
-// query's list fills, its serial merge.  One block of 8 warps per tile of
-// 32 queries walks the whole bank in 128-token tiles (block_topk,
-// topk_common.cuh), NEWEST first, from the fill down: propagation queries
-// are temporally next to the latest memories, so the running k-th score tau
-// rises within the first tiles.  It admits a token when its score is >= tau
-// (not >, so a token that ties tau still reaches the insertion, whose
-// (value desc, id asc) rule picks lax.top_k's winner), and a tile in which
-// no query admits anything skips its merge.  Exactness
-// (memory_topk.py:611-618): tau is the k-th best of a subset of the tokens,
-// so tau <= the true k-th score <= the score of any true winner, which is
-// therefore always admitted.  With no_skip every token is admitted and
-// every tile merges (the TPU kernel's sel_notau ablation).
+// The newest-first selection: the same kernels, with a running floor
+// ------------------------------------------------------------------
+// What bounds it: the same block stage.  The TPU kernel's one idea beyond
+// the default selection is order: it walks the bank newest first, since
+// propagation queries are temporally next to the latest memories, and skips
+// a sub-block with no score >= the running k-th score tau (the k-th best of
+// the tokens seen so far, so tau <= the true k-th score <= every winner's:
+// memory_topk.py:611-618).  Here the blocks run in parallel, so no list is
+// seen "so far"; what carries over is a floor:
+//
+//  - newest first: grid row y takes bank block n_live - 1 - y, and blocks
+//    are dispatched in grid order, so the newest blocks of every query tile
+//    are scored first;
+//  - a running floor per query in device memory (zeroed by the launch):
+//    each ranked row with k keys raises it by atomicMax to its k-th key
+//    (lowered to the least key of its score bits); each row reads it before
+//    it compacts and keeps only keys at or above max(tau, floor).  A block's
+//    k-th key is at most the query's true k-th key, so no winner is lost,
+//    whatever the timing, and the result is the default selection's exactly.
+//    A row whose largest key is below the floor writes a dead list and skips
+//    the compaction and ranking (`floored` counts those rows); other rows
+//    keep fewer candidates to rank.
+//
+// With no_skip the floor is off (the TPU kernel's sel_notau ablation): the
+// default selection with the bank blocks reversed.  On banks where the newest
+// block holds no better keys than any other (iid or periodic keys) the floor
+// empties few rows; PERF.md records what it gives.
 
-#include "topk_common.cuh"
 #include "topk_prune.cuh"
 
 namespace {
 
 using namespace prune;
-using namespace topk;
 
 constexpr int kMergeQ = 32;                  // queries per merge block
 constexpr int kMergeThreads = 16 * kMergeQ;  // a half warp per query
@@ -80,16 +91,22 @@ constexpr int kMergeThreads = 16 * kMergeQ;  // a half warp per query
 // fit the shared memory up to here.
 constexpr int kMaxLists = 2048;
 
-template <typename T, int CK>
+// kNewest: grid row y is bank block n_live - 1 - y, and floor (null, or
+// the running floors [n]) and floored (null, or one int32 counting the rows
+// the floor emptied) are read.  The default selection is the instance
+// without, so that none of the floor's code is in its kernel.
+template <typename T, int CK, bool kNewest>
 __global__ void __launch_bounds__(kThreads1, 1)
 topk_prune_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
                         u64* __restrict__ part, float* __restrict__ vals,
                         int* __restrict__ idx, int n, int valid, int top_k,
-                        int* __restrict__ escalations) {
+                        u64* floor, int* __restrict__ escalations,
+                        int* floored) {
   extern __shared__ __align__(16) unsigned tile_smem[];
   const BlockSmem s = carve_block(tile_smem);
   const int q0 = blockIdx.x * kQT;
-  const int lo = blockIdx.y * kBlk;
+  const int b = kNewest ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int lo = b * kBlk;
   score_tile<T, CK>(qk, mk, n, q0, lo, min(lo + kBlk, valid), s);
 
   const int warp = threadIdx.x >> 5;
@@ -98,9 +115,11 @@ topk_prune_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
   const bool direct = gridDim.y == 1;  // one live block: no merge
   if (q < n) {
     u64* out = direct ? reinterpret_cast<u64*>(row)
-                      : part + (static_cast<size_t>(q) * gridDim.y +
-                                blockIdx.y) * top_k;
-    select_row(row, lo, top_k, s.cand + warp * kCap, out, escalations);
+                      : part + (static_cast<size_t>(q) * gridDim.y + b) *
+                                   top_k;
+    select_row(row, lo, top_k, s.cand + warp * kCap, out, escalations,
+               kNewest && floor != nullptr ? floor + q : nullptr,
+               kNewest ? floored : nullptr);
   }
   if (!direct) return;
   __syncthreads();
@@ -188,19 +207,20 @@ inline size_t merge_smem_bytes(int top_k, int n_lists) {
          sizeof(unsigned short) * kMergeQ * static_cast<size_t>(n_lists);
 }
 
-template <typename T, int CK>
+template <typename T, int CK, bool kNewest>
 int launch_pruned(const void* qk, const void* mk, u64* part, float* vals,
                   int* idx, int n, int valid, int top_k, int n_live,
-                  int* escalations, cudaStream_t stream) {
+                  u64* floor, int* escalations, int* floored,
+                  cudaStream_t stream) {
   const size_t smem = block_smem_bytes(CK);
   cudaError_t err = cudaFuncSetAttribute(
-      topk_prune_block_kernel<T, CK>,
+      topk_prune_block_kernel<T, CK, kNewest>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kQT - 1) / kQT, n_live);
-  topk_prune_block_kernel<T, CK><<<grid, kThreads1, smem, stream>>>(
+  topk_prune_block_kernel<T, CK, kNewest><<<grid, kThreads1, smem, stream>>>(
       static_cast<const T*>(qk), static_cast<const T*>(mk), part, vals, idx,
-      n, valid, top_k, escalations);
+      n, valid, top_k, floor, escalations, floored);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_live == 1) return static_cast<int>(err);
   const size_t merge_smem = merge_smem_bytes(top_k, n_live);
@@ -214,35 +234,39 @@ int launch_pruned(const void* qk, const void* mk, u64* part, float* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int CK>
-__global__ void __launch_bounds__(kThreads, 2)
-topk_chunked_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
-                    float* __restrict__ out_vals, int* __restrict__ out_idx,
-                    int n, int valid, int top_k, int no_skip) {
-  extern __shared__ __align__(16) float smem[];
-  const TopkSmem s = carve(smem, CK, top_k);
-  const int q = blockIdx.x * kQueries + (threadIdx.x & 31);
-  float qv[CK];
-  load_query<T, CK>(qk, q, q < n, qv);
-  block_topk<T, CK>(qv, q < n, mk, 0, valid, top_k, true,
-                    no_skip ? kAdmitAll : kAdmitTau, s);
-  write_lists(s, out_vals, out_idx, n, q, top_k);
-}
-
-template <typename T, int CK>
-int launch_chunked(const void* qk, const void* mk, float* vals, int* idx,
-                   int n, int valid, int top_k, int no_skip,
-                   cudaStream_t stream) {
-  const size_t smem = block_topk_smem_bytes(CK, top_k);
-  const dim3 grid((n + kQueries - 1) / kQueries);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_chunked_kernel<T, CK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  topk_chunked_kernel<T, CK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qk), static_cast<const T*>(mk), vals, idx, n,
-      valid, top_k, no_skip);
-  return static_cast<int>(cudaGetLastError());
+// Both selections' checks and launch; floor as for topk_prune_block_kernel,
+// zeroed here first.
+int launch(const void* qk, const void* mk, void* vals, void* idx, int n,
+           int valid, int ck, int top_k, int is_bf16, void* stream,
+           void* part, int newest_first, void* floor, void* escalations,
+           void* floored) {
+  if (n <= 0) return 0;
+  const int n_live = live_blocks(valid);
+  if (ck != 64 || top_k < 1 || top_k > 256 || n_live > kMaxLists ||
+      (n_live > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  u64* f = n_live > 1 ? static_cast<u64*>(floor) : nullptr;  // one block
+  if (f != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(f, 0, sizeof(u64) * n, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  u64* p = static_cast<u64*>(part);
+  float* v = static_cast<float*>(vals);
+  int* i = static_cast<int*>(idx);
+  int* e = static_cast<int*>(escalations);
+  int* fl = static_cast<int*>(floored);
+  if (newest_first) {
+    return is_bf16 ? launch_pruned<__nv_bfloat16, 64, true>(
+                         qk, mk, p, v, i, n, valid, top_k, n_live, f, e, fl, s)
+                   : launch_pruned<float, 64, true>(
+                         qk, mk, p, v, i, n, valid, top_k, n_live, f, e, fl, s);
+  }
+  return is_bf16 ? launch_pruned<__nv_bfloat16, 64, false>(
+                       qk, mk, p, v, i, n, valid, top_k, n_live, f, e, fl, s)
+                 : launch_pruned<float, 64, false>(
+                       qk, mk, p, v, i, n, valid, top_k, n_live, f, e, fl, s);
 }
 
 }  // namespace
@@ -259,40 +283,25 @@ extern "C" {
 int memory_topk_launch(const void* qk, const void* mk, void* vals, void* idx,
                        int n, int valid, int ck, int top_k, int is_bf16,
                        void* stream, void* part, void* escalations) {
-  if (n <= 0) return 0;
-  const int n_live = live_blocks(valid);
-  if (ck != 64 || top_k < 1 || top_k > 256 || n_live > kMaxLists ||
-      (n_live > 1 && part == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  u64* p = static_cast<u64*>(part);
-  float* v = static_cast<float*>(vals);
-  int* i = static_cast<int*>(idx);
-  int* e = static_cast<int*>(escalations);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_pruned<__nv_bfloat16, 64>(qk, mk, p, v, i, n, valid, top_k,
-                                            n_live, e, s);
-  }
-  return launch_pruned<float, 64>(qk, mk, p, v, i, n, valid, top_k, n_live,
-                                  e, s);
+  return launch(qk, mk, vals, idx, n, valid, ck, top_k, is_bf16, stream, part,
+                0, nullptr, escalations, nullptr);
 }
 
-// The newest-first selection with the tau skip (no_skip = 1 disables it);
-// qk, mk, vals and idx as for memory_topk_launch.
+// The newest-first selection with the running floor (no_skip = 1: without);
+// qk, mk, vals, idx, part and escalations as for memory_topk_launch.  floor:
+// [n] 64-bit scratch (null is allowed when no_skip = 1 or n_live = 1).
+// floored: null, or one int32 on the device that counts the (query, bank
+// block) rows that the floor emptied.
 int memory_topk_chunked_launch(const void* qk, const void* mk, void* vals,
                                void* idx, int n, int valid, int ck, int top_k,
-                               int no_skip, int is_bf16, void* stream) {
-  if (n <= 0) return 0;
-  if (ck != 64) return static_cast<int>(cudaErrorInvalidValue);
-  float* v = static_cast<float*>(vals);
-  int* i = static_cast<int*>(idx);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_chunked<__nv_bfloat16, 64>(qk, mk, v, i, n, valid, top_k,
-                                             no_skip, s);
+                               int no_skip, int is_bf16, void* stream,
+                               void* part, void* floor, void* escalations,
+                               void* floored) {
+  if (!no_skip && floor == nullptr && live_blocks(valid) > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_chunked<float, 64>(qk, mk, v, i, n, valid, top_k, no_skip, s);
+  return launch(qk, mk, vals, idx, n, valid, ck, top_k, is_bf16, stream, part,
+                1, no_skip ? nullptr : floor, escalations, floored);
 }
 
 const char* memory_topk_error_string(int status) {

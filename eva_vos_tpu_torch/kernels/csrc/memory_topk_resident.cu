@@ -28,7 +28,7 @@
 //     asc), is its output slot when it is below k.
 //  3. a block in which some query admitted more than kCap tokens (many
 //     exact ties at tau, or tau far below the k-th score) escalates: it
-//     runs memory_topk.cu's exact streaming selection (block_topk) over the
+//     runs topk_common.cuh's exact streaming selection (block_topk) over the
 //     bank for its 32 queries, the counterpart of the TPU kernel's
 //     verify/escalate ladder (memory_topk.py:881-912).  `escalations`, when
 //     not null, counts the blocks that did.
@@ -157,8 +157,7 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
   if (__syncthreads_or(over)) {
     if (threadIdx.x == 0 && escalations != nullptr) atomicAdd(escalations, 1);
     const TopkSmem s = carve(smem, CK, top_k);
-    block_topk<T, CK>(qv, q_ok, mk, 0, valid, top_k, false, kAdmitBeatsList,
-                      s);
+    block_topk<T, CK>(qv, q_ok, mk, 0, valid, top_k, s);
     write_lists(s, out_vals, out_idx, n, q, top_k);
     return;
   }

@@ -1,7 +1,8 @@
 // Shared pieces of the exact top-k selection kernels (sm_90a):
-// memory_topk.cu, memory_topk_grid.cu and memory_topk_resident.cu (the
-// streaming block selection below), memory_topk_iter.cu and
-// memory_topk_sort.cu (score_block and warp_softmax_row, at the end).
+// memory_topk_resident.cu (the streaming block selection below),
+// memory_topk_iter.cu and topk_prune.cuh (score_block and warp_softmax_row,
+// at the end; topk_prune.cuh serves memory_topk.cu, memory_topk_sort.cu and
+// memory_topk_grid.cu).
 //
 // All of them score memory token t for query n as
 //     score(n, t) = (2 * <q_n, k_t> - |k_t|^2) / sqrt(CK)
@@ -14,9 +15,9 @@
 // it as a broadcast; warp w scores tokens [16w, 16w + 16) of each tile.
 //
 // block_topk is the exact streaming selection of one block: a token that
-// passes its query's admission test is appended to that query's candidate
-// buffer, and after the tile warp 0 insertion-sorts the candidates into the
-// per-query list in shared memory.  When no thread admitted anything the
+// beats its query's k-th listed (value, id) is appended to that query's
+// candidate buffer, and after the tile warp 0 insertion-sorts the candidates
+// into the per-query list in shared memory.  When no thread admitted anything the
 // merge is skipped (one __syncthreads_or).  The insertion compares
 // (value desc, id asc), so the order in which tiles and warps find
 // candidates never changes the result.
@@ -128,13 +129,6 @@ __device__ __forceinline__ void score4(const float* qv, const float* tile,
   for (int u = 0; u < 4; ++u) s[u] = (2.f * acc[u] - tile_sq[j + u]) / scale;
 }
 
-// Which tokens block_topk appends to a query's candidate buffer:
-enum Admit {
-  kAdmitBeatsList = 0,  // those that beat the list's k-th (value, id)
-  kAdmitTau = 1,        // those scoring >= the list's k-th value (tau)
-  kAdmitAll = 2,        // every token (no skip)
-};
-
 struct TopkSmem {
   float* tile;     // [kTile][CK]
   float* tile_sq;  // [kTile]
@@ -166,13 +160,11 @@ __device__ __forceinline__ TopkSmem carve(float* smem, int ck, int top_k) {
 // Exact top_k of tokens [lo, hi) for the block's 32 queries, left in
 // s.list_v / s.list_i [top_k][kQueries] (value desc, id asc; slots left
 // over when hi - lo < top_k hold (-1e30, 0)).  Tiles are walked from lo
-// upwards, or from the last tile below hi downwards (newest_first).
-// Every thread of the block calls it; it ends with a barrier.
+// upwards.  Every thread of the block calls it; it ends with a barrier.
 template <typename T, int CK>
 __device__ __forceinline__ void block_topk(const float* qv, bool q_ok,
                                            const T* mk, int lo, int hi,
-                                           int top_k, bool newest_first,
-                                           int admit, const TopkSmem& s) {
+                                           int top_k, const TopkSmem& s) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int e = threadIdx.x; e < top_k * kQueries; e += kThreads) {
@@ -184,7 +176,7 @@ __device__ __forceinline__ void block_topk(const float* qv, bool q_ok,
   const int j0 = warp * kTokPerWarp;       // this warp's tokens in a tile
   const int n_tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
   for (int i = 0; i < n_tiles; ++i) {
-    const int base = lo + (newest_first ? n_tiles - 1 - i : i) * kTile;
+    const int base = lo + i * kTile;
     stage_tile<T, CK>(mk, base, hi, s.tile, s.tile_sq);
     __syncthreads();
 
@@ -200,16 +192,11 @@ __device__ __forceinline__ void block_topk(const float* qv, bool q_ok,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int tok = base + j0 + jj + u;
-        if (q_ok && tok < hi) {
-          const bool in = admit == kAdmitAll ||
-                          (admit == kAdmitTau ? sc[u] >= thr_v
-                                              : better(sc[u], tok, thr_v, thr_i));
-          if (in) {
-            const int p = atomicAdd(&s.cand_n[lane], 1);
-            s.cand_v[lane * kTile + p] = sc[u];
-            s.cand_i[lane * kTile + p] = tok;
-            admitted = 1;
-          }
+        if (q_ok && tok < hi && better(sc[u], tok, thr_v, thr_i)) {
+          const int p = atomicAdd(&s.cand_n[lane], 1);
+          s.cand_v[lane * kTile + p] = sc[u];
+          s.cand_i[lane * kTile + p] = tok;
+          admitted = 1;
         }
       }
     }
@@ -257,7 +244,7 @@ __device__ __forceinline__ float neg_inf() {
 }
 
 // The dense score tile of the block-per-bank-block selections
-// (memory_topk_iter.cu, memory_topk_sort.cu): the scores of queries
+// (memory_topk_iter.cu, and topk_prune.cuh for fp32 keys): the scores of queries
 // [q0, q0 + QT) against tokens [lo, lo + BLK), handed to store(qq, j, score)
 // for token lo + j < hi and to store.dead(qq, j) for the others.  The
 // queries are staged once in s_q [QT][CK] fp32 (zeros past n); thread j

@@ -1,8 +1,10 @@
 // The pruned block stage of the exact top-k selections by bank block
-// (sm_90a): memory_topk.cu (the default read's selection) and
-// memory_topk_sort.cu (select_topk's 'sort' method) score a tile of 16
-// queries against one 2,048-token bank block and leave, for each query, the
-// block's exact top k as sorted 64-bit keys.
+// (sm_90a): memory_topk.cu (the default read's selection and the
+// newest-first one) and, through the row-output stage at the end,
+// memory_topk_sort.cu (select_topk's 'sort' method) and memory_topk_grid.cu
+// (the 'select' read's selection).  A block scores a tile of 16 queries
+// against one 2,048-token bank block and leaves, for each query, the block's
+// exact top k as sorted 64-bit keys.
 //
 // A candidate is one 64-bit key: the score's bits, mapped so that unsigned
 // order is float order (ord), in the high word and ~id in the low word, so
@@ -27,22 +29,28 @@
 //        tau is at least 1, so no dead token is admitted and a row with fewer
 //        than k live tokens keeps all of them; groups strided across the
 //        columns keep a block that ends mid-way at G live groups.
-//     b. compaction: the keys of the columns with ord >= tau go to the row's
-//        candidate list in shared memory (512 keys), placed by warp ballot
-//        and popc.  For random scores ~1.2 k survive (62 at k = 50).
+//        With a running floor (the newest-first selection), the threshold is
+//        the larger of tau and the floor: a key that some already ranked
+//        bank block of the query has k keys at or above (see select_row).
+//     b. compaction: the keys of the columns at or above the threshold go
+//        to the row's candidate list in shared memory (512 keys), placed by
+//        warp ballot and popc.  For random scores ~1.2 k survive (62 at
+//        k = 50).
 //     c. escalation, exact: a row with more than 512 survivors (its winners
 //        packed into fewer than k groups, or scores tied across the row)
-//        bisects the key range between tau and its largest ord, counting
-//        keys at or above the midpoint, until k to 512 keys are left (keys
-//        are distinct, so a count never jumps by more than one), and compacts
-//        again.  It adds one to `escalations` when that is given.
+//        bisects the key range between the threshold and its largest ord,
+//        counting keys at or above the midpoint, until k to 512 keys are
+//        left (keys are distinct, so a count never jumps by more than one),
+//        and compacts again.  It adds one to `escalations` when that is
+//        given.
 //     d. up to 128 candidates are placed by rank (each lane counts the
 //        candidates above its own, reading each once as a broadcast); more
 //        are sorted by the warp in registers.  The first k keys, in order,
 //        go to the caller's list (zeros past the live keys).
 //
-// memory_topk.py states the rule for the tests: SORT_CAPACITY is kCap,
-// sort_prune_groups the group count, sort_prune_threshold the threshold.
+// memory_topk.py states the rules for the tests: SORT_CAPACITY is kCap,
+// sort_prune_groups the group count, sort_prune_threshold the threshold,
+// floored_lists and list_floor the running floor, merge_lists_t the merge.
 
 #pragma once
 
@@ -471,9 +479,25 @@ __device__ __forceinline__ void rank_candidates(const u64* cand, int count,
 // The warp's row of the score tile -> its exact top_k keys, sorted, in out
 // (which may be the row itself: the row is read for the last time before
 // out is written).
+//
+// floor, when not null, is the query's running floor in device memory (0
+// before any bank block of the query is ranked): a key with low word 0 that
+// the k-th key of some already ranked block of the query is at or above.
+// The true k-th key of the query is at or above every block's k-th key, so
+// every winner is at or above the floor, and the row keeps only keys at or
+// above max(tau, floor).  The floor is read once (lane 0, before the
+// compaction); a stale read is a lower floor and still below every winner,
+// so the result is exact whatever the blocks' timing.  A row whose largest
+// key is below the floor holds no winner: it writes a dead list (out[0] = 0,
+// which a merge never advances past) and adds one to `floored` when that is
+// given.  A row that keeps k keys raises the floor to its k-th key lowered
+// to the least key of the same score bits (atomicMax).
 __device__ __forceinline__ void select_row(const unsigned* row, int lo,
                                            int top_k, u64* cand, u64* out,
-                                           int* escalations) {
+                                           int* escalations,
+                                           u64* floor = nullptr,
+                                           int* floored = nullptr) {
+  const int lane = threadIdx.x & 31;
   unsigned tau, top;
   if (top_k <= 64) {
     group_threshold<4>(row, top_k, tau, top);
@@ -483,11 +507,24 @@ __device__ __forceinline__ void select_row(const unsigned* row, int lo,
     group_threshold<16>(row, top_k, tau, top);
   }
   u64 a = static_cast<u64>(tau) << 32;  // keys of ords >= tau
+  if (floor != nullptr) {
+    u64 f = lane == 0 ? *reinterpret_cast<volatile u64*>(floor) : 0ull;
+    f = __shfl_sync(kFull, f, 0);
+    if (top < static_cast<unsigned>(f >> 32)) {  // every key below the floor
+      if (lane == 0) {
+        out[0] = 0ull;
+        if (floored != nullptr) atomicAdd(floored, 1);
+      }
+      return;
+    }
+    a = max(a, f);  // both with low word 0: "ord >= a's high word" still
+  }
   int count = compact<true>(row, lo, a, cand);
   if (count > kCap) {
     // count(a) > kCap >= top_k > count(b), so b - a >= 2 (keys are
     // distinct), mid lies strictly between them, and the loop ends at a
-    // count in [top_k, kCap]
+    // count in [top_k, kCap]; a raised by the floor keeps count(a) > kCap
+    // and a key at or above a, so b > a still
     u64 b = (static_cast<u64>(top) + 1) << 32;
     for (;;) {
       const u64 mid = a + ((b - a) >> 1);
@@ -501,9 +538,7 @@ __device__ __forceinline__ void select_row(const unsigned* row, int lo,
     }
     __syncwarp();
     count = compact<false>(row, lo, a, cand);
-    if ((threadIdx.x & 31) == 0 && escalations != nullptr) {
-      atomicAdd(escalations, 1);
-    }
+    if (lane == 0 && escalations != nullptr) atomicAdd(escalations, 1);
   }
   __syncwarp();
   if (count <= 64) {
@@ -515,6 +550,11 @@ __device__ __forceinline__ void select_row(const unsigned* row, int lo,
   } else {
     sort_candidates<16>(cand, count, top_k, out);
   }
+  if (floor != nullptr) {
+    __syncwarp();
+    const u64 kth = out[top_k - 1];  // 0 when fewer than top_k were kept
+    if (lane == 0 && kth != 0ull) atomicMax(floor, kth >> 32 << 32);
+  }
 }
 
 // The number of live 2,048-token bank blocks that the callers launch for
@@ -522,6 +562,197 @@ __device__ __forceinline__ void select_row(const unsigned* row, int lo,
 // dead slots).
 __host__ __device__ __forceinline__ int live_blocks(int valid) {
   return valid > kBlk ? (valid + kBlk - 1) / kBlk : 1;
+}
+
+// The row-output stage: [N, k] rows of softmax weights (or raw scores) and
+// int32 ids, for memory_topk_sort.cu and memory_topk_grid.cu, which compute
+// the same function and launch the same two kernels.
+//
+//  1. topk_rows_block_kernel: grid (tiles of 16 queries) x (live 2,048-token
+//     bank blocks; blocks past `valid` are never launched).  The block stage
+//     above; with several live blocks query q's sorted k keys go to list b
+//     of a buffer part[N, n_live, k] of 64-bit keys.  With ONE live block
+//     (up to 2,048 tokens) they are the answer: each warp writes them over
+//     its own row of the score tile and then its query's output row, softmax
+//     included; the merge is not launched.
+//  2. topk_rows_merge_kernel: one warp per query merges its n_live sorted
+//     lists: lane l holds the heads of lists l, l + 32, ...; each output
+//     slot is the warp's largest head (one shuffle reduction of 64-bit
+//     keys), and only the lane whose list it came from advances that list.
+//     It writes the row of scores, then the weights.
+
+constexpr int kRowMergeWarps = 8;
+// Lists the row merge takes (12,288,000 tokens): its int heads fit the
+// shared memory up to here.
+constexpr int kMaxRowLists = 6000;
+
+// A warp's sorted keys [top_k] (written by this warp) -> its query's output
+// row: the raw scores, or exp(v - v_0) / sum as warp_softmax_row computes
+// them, and the ids.
+__device__ __forceinline__ void write_row(const u64* keys, float* ov, int* oi,
+                                          int top_k, int raw) {
+  __syncwarp();
+  const int lane = threadIdx.x & 31;
+  float v0;
+  int id0;
+  unpack(keys[0], v0, id0);
+  float z = 0.f;
+  if (!raw) {
+    for (int t = lane; t < top_k; t += 32) {
+      float v;
+      int id;
+      unpack(keys[t], v, id);
+      z += expf(v - v0);
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) z += __shfl_xor_sync(kFull, z, off);
+  }
+  for (int t = lane; t < top_k; t += 32) {
+    float v;
+    int id;
+    unpack(keys[t], v, id);
+    ov[t] = raw ? v : expf(v - v0) / z;
+    oi[t] = id;
+  }
+}
+
+template <typename T, int CK>
+__global__ void __launch_bounds__(kThreads1, 1)
+topk_rows_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
+                       u64* __restrict__ part, float* __restrict__ out_v,
+                       int* __restrict__ out_i, int n, int valid, int top_k,
+                       int raw, int* __restrict__ escalations) {
+  extern __shared__ __align__(16) unsigned rows_smem[];
+  const BlockSmem s = carve_block(rows_smem);
+  const int q0 = blockIdx.x * kQT;
+  const int lo = blockIdx.y * kBlk;
+  score_tile<T, CK>(qk, mk, n, q0, lo, min(lo + kBlk, valid), s);
+
+  const int warp = threadIdx.x >> 5;
+  const int q = q0 + warp;
+  if (q >= n) return;
+  unsigned* row = s.tile + warp * kRowStride;
+  const bool direct = gridDim.y == 1;  // one live block: no merge
+  u64* out = direct ? reinterpret_cast<u64*>(row)
+                    : part + (static_cast<size_t>(q) * gridDim.y +
+                              blockIdx.y) * top_k;
+  select_row(row, lo, top_k, s.cand + warp * kCap, out, escalations);
+  if (direct) {
+    write_row(out, out_v + static_cast<size_t>(q) * top_k,
+              out_i + static_cast<size_t>(q) * top_k, top_k, raw);
+  }
+}
+
+// A template (on the output: raw scores or weights), so that a file that
+// includes this header and launches no row merge compiles none.
+template <bool kRaw>
+__global__ void __launch_bounds__(32 * kRowMergeWarps)
+topk_rows_merge_kernel(const u64* __restrict__ part, float* __restrict__ out_v,
+                       int* __restrict__ out_i, int n, int top_k,
+                       int n_lists) {
+  extern __shared__ int rows_heads[];  // [kRowMergeWarps][n_lists]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q = blockIdx.x * kRowMergeWarps + warp;
+  if (q >= n) return;  // whole warps
+  int* head = rows_heads + warp * n_lists;
+  const u64* lists = part + static_cast<size_t>(q) * n_lists * top_k;
+  float* ov = out_v + static_cast<size_t>(q) * top_k;
+  int* oi = out_i + static_cast<size_t>(q) * top_k;
+
+  for (int b = lane; b < n_lists; b += 32) head[b] = 0;
+  // this lane's largest head and its list (-1: none left)
+  auto best_head = [&](u64& key, int& list) {
+    key = 0ull;
+    list = -1;
+    for (int b = lane; b < n_lists; b += 32) {
+      const int h = head[b];
+      const u64 k = h < top_k ? lists[static_cast<size_t>(b) * top_k + h] : 0ull;
+      if (list < 0 || k > key) {
+        key = k;
+        list = b;
+      }
+    }
+  };
+  u64 mine;
+  int list;
+  best_head(mine, list);
+  for (int t = 0; t < top_k; ++t) {
+    u64 win = mine;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      const u64 o = __shfl_xor_sync(kFull, win, off);
+      win = o > win ? o : win;
+    }
+    if (win == 0ull) {  // only dead keys left
+      for (int u = t + lane; u < top_k; u += 32) {
+        ov[u] = kNegInf;
+        oi[u] = 0;
+      }
+      break;
+    }
+    if (mine == win) {  // live keys are distinct: one lane owns it
+      unpack(win, ov[t], oi[t]);
+      ++head[list];
+      best_head(mine, list);
+    }
+  }
+  if (!kRaw) topk::warp_softmax_row(ov, top_k);
+}
+
+// Both kernels of the row-output stage on `stream`; part may be null when
+// n_live = 1.  Returns a cudaError_t code.
+template <typename T, int CK>
+int launch_rows(const void* qk, const void* mk, u64* part, float* out_v,
+                int* out_i, int n, int valid, int top_k, int n_live, int raw,
+                int* escalations, cudaStream_t stream) {
+  const size_t smem = block_smem_bytes(CK);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_rows_block_kernel<T, CK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kQT - 1) / kQT, n_live);
+  topk_rows_block_kernel<T, CK><<<grid, kThreads1, smem, stream>>>(
+      static_cast<const T*>(qk), static_cast<const T*>(mk), part, out_v, out_i,
+      n, valid, top_k, raw, escalations);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_live == 1) return static_cast<int>(err);
+  const size_t merge_smem = sizeof(int) * kRowMergeWarps * n_live;
+  auto merge = raw ? &topk_rows_merge_kernel<true>
+                   : &topk_rows_merge_kernel<false>;
+  err = cudaFuncSetAttribute(merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(merge_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge<<<(n + kRowMergeWarps - 1) / kRowMergeWarps, 32 * kRowMergeWarps,
+          merge_smem, stream>>>(part, out_v, out_i, n, top_k, n_live);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The C interface of memory_topk_sort.cu and memory_topk_grid.cu, for keys
+// CK wide: checks the arguments and launches the row-output stage.  (A
+// template, as the kernels are, so that a file that includes this header
+// and calls it not compiles none of them.)
+template <int CK>
+int launch_rows_checked(const void* qk, const void* mk, void* part,
+                        void* out_v, void* out_i, int n, int valid, int ck,
+                        int top_k, int n_live, int raw, int is_bf16,
+                        void* stream, void* escalations) {
+  if (n <= 0) return 0;
+  if (ck != CK || top_k < 1 || top_k > 256 || n_live > kMaxRowLists ||
+      n_live != live_blocks(valid) || (n_live > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  u64* p = static_cast<u64*>(part);
+  float* ov = static_cast<float*>(out_v);
+  int* oi = static_cast<int*>(out_i);
+  int* e = static_cast<int*>(escalations);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch_rows<__nv_bfloat16, CK>(qk, mk, p, ov, oi, n, valid, top_k,
+                                          n_live, raw, e, s);
+  }
+  return launch_rows<float, CK>(qk, mk, p, ov, oi, n, valid, top_k, n_live,
+                                raw, e, s);
 }
 
 }  // namespace prune

@@ -9,20 +9,22 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
   kernels ``csrc/memory_topk.cu:topk_prune_block_kernel`` and
   ``topk_merge_t_kernel``; :func:`merge_lists_t` states the merge;
 * :func:`topk_select_chunked` — ``chunked_topk_t``
-  (``_kernel_tournament_chunked``), newest first with the tau skip, kernel
-  ``csrc/memory_topk.cu:topk_chunked_kernel``;
+  (``_kernel_tournament_chunked``), the same kernels with the bank blocks
+  newest first and a running floor per query in place of the TPU kernel's
+  tau skip; :func:`floored_lists` and :func:`list_floor` state the floor;
 * :func:`topk_select_resident` — ``resident_topk_t`` (``_kernel_resident``),
   two passes with a threshold, kernel ``csrc/memory_topk_resident.cu``;
 * :func:`topk_select_grid` — ``pallas_memory_topk(method="grid")``
-  (``_kernel_grid``), split bank plus merge, kernel
-  ``csrc/memory_topk_grid.cu``;
+  (``_kernel_grid``), kernel ``csrc/memory_topk_grid.cu``: the sort
+  kernel's function and device code (the row-output stage of
+  ``csrc/topk_prune.cuh``);
 * :func:`topk_select_iter` — ``pallas_memory_topk(method="iterative")``
   (``_kernel_iter``), per-block k-pass extraction into a candidate buffer,
   then one extraction, kernel ``csrc/memory_topk_iter.cu``;
 * :func:`topk_select_sort` — ``pallas_memory_topk(method="sort")``
   (``_kernel``), per-block pruning to a few candidates and a ranking of
-  those, then a merge of the sorted lists, kernel
-  ``csrc/memory_topk_sort.cu``;
+  those, then a merge of the sorted lists (no merge with one live bank
+  block), kernel ``csrc/memory_topk_sort.cu``;
   :func:`sort_prune_threshold` states its pruning rule for the tests;
 * :func:`select_topk` — ``pallas_memory_topk``: a method name to one of them,
   'iterative' by default as there.
@@ -56,11 +58,9 @@ from . import build
 
 _CK = 64  # the STCN key width, the one the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SPLITS = 16      # memory_topk_grid.cu's kMaxSplits
-_SPLIT_UNIT = 128     # bank tokens per staged tile
-_TARGET_BLOCKS = 264  # two 256-thread selection blocks on each of 132 SMs
 _SELECT_BLOCK = 2048  # bank tokens per block of the block selections
 _MAX_LISTS = 2048     # memory_topk.cu's kMaxLists: bank blocks it merges
+_MAX_ROW_LISTS = 6000  # topk_prune.cuh's kMaxRowLists: the row merge's lists
 
 
 def topk_select_plain(qk, mk, valid_tokens, top_k: int):
@@ -83,15 +83,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _bind("memory_topk", "memory_topk_launch",
                 [_P] * 4 + [_I] * 5 + [_P] * 3)
-    lib.memory_topk_chunked_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+    lib.memory_topk_chunked_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P] * 5
     lib.memory_topk_chunked_launch.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _grid_lib() -> ctypes.CDLL:
-    return _bind("memory_topk_grid", "memory_topk_grid_launch",
-                 [_P] * 6 + [_I] * 8 + [_P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,9 +95,9 @@ def _iter_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _sort_lib() -> ctypes.CDLL:
-    return _bind("memory_topk_sort", "memory_topk_sort_launch",
-                 [_P] * 5 + [_I] * 7 + [_P, _P])
+def _rows_lib(name: str) -> ctypes.CDLL:
+    """The library of a selection of the row-output stage (sort, grid)."""
+    return _bind(name, f"{name}_launch", [_P] * 5 + [_I] * 7 + [_P, _P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,11 +129,15 @@ def _check_selection(qk, mk, valid_tokens, top_k: int) -> int:
     return m if valid_tokens is None else max(0, min(int(valid_tokens), m))
 
 
-def _check_counter(escalations, qk):
-    if escalations is not None and (
-            escalations.device != qk.device
-            or escalations.dtype != torch.int32 or escalations.numel() != 1):
-        raise ValueError("escalations must be one int32 on qk's device")
+def _check_counter(counter, qk, name="escalations"):
+    if counter is not None and (
+            counter.device != qk.device
+            or counter.dtype != torch.int32 or counter.numel() != 1):
+        raise ValueError(f"{name} must be one int32 on qk's device")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _on_cpu(qk, mk) -> bool:
@@ -170,6 +168,23 @@ def _row_selection_plain(qk, mk, valid_tokens, top_k: int, return_raw: bool):
     return w, idx.to(torch.int32)
 
 
+def _block_lists(qk, n_live: int, top_k: int):
+    """The block selections' scratch [N, n_live, top_k] of 64-bit keys, or
+    None with one live bank block (no merge)."""
+    if n_live == 1:
+        return None
+    return torch.empty((qk.shape[0], n_live, top_k), dtype=torch.int64,
+                       device=qk.device)
+
+
+def _check_lists(valid: int, most: int) -> int:
+    n_live = _live_blocks(valid)
+    if n_live > most:
+        raise ValueError(f"{valid} valid tokens exceed the selection's "
+                         f"{most * _SELECT_BLOCK}")
+    return n_live
+
+
 def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
                 top_k: int, escalations: torch.Tensor | None = None):
     """Top-k selection by pruning each bank block's scores (as
@@ -182,37 +197,46 @@ def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
         return topk_select_plain(qk, mk, valid_tokens, top_k)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
     _check_counter(escalations, qk)
-    n, n_live = qk.shape[0], _live_blocks(valid)
-    if n_live > _MAX_LISTS:
-        raise ValueError(f"{valid} valid tokens exceed the selection's "
-                         f"{_MAX_LISTS * _SELECT_BLOCK}")
+    part = _block_lists(qk, _check_lists(valid, _MAX_LISTS), top_k)
     vals, idx = _transposed_outputs(qk, top_k)
-    part = (torch.empty((n, n_live, top_k), dtype=torch.int64,
-                        device=qk.device) if n_live > 1 else None)
     lib = _lib()
     status = lib.memory_topk_launch(
-        qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(), n,
-        valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk),
-        None if part is None else part.data_ptr(),
-        None if escalations is None else escalations.data_ptr())
+        qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        qk.shape[0], valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk),
+        _ptr(part), _ptr(escalations))
     build.check("memory_topk", lib, status)
     topk_select.launches += 1
     return vals, idx
 
 
 def topk_select_chunked(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
-                        top_k: int, no_skip: bool = False):
-    """Top-k selection, bank newest first with the tau skip (``no_skip``
-    turns it off); plain: topk_select_plain."""
+                        top_k: int, no_skip: bool = False,
+                        escalations: torch.Tensor | None = None,
+                        floored_rows: torch.Tensor | None = None):
+    """Top-k selection as :func:`topk_select`, with the bank blocks ranked
+    newest first and a running floor per query (:func:`floored_lists`):
+    a block's row keeps only the keys at or above the k-th key of some
+    already ranked block of its query, and a row whose keys all lie below
+    that floor is emptied.  ``no_skip`` turns the floor off (the JAX
+    ``sel_notau`` ablation).  Plain version: topk_select_plain.
+    ``escalations`` as for :func:`topk_select`; ``floored_rows``, a CUDA
+    int32 tensor of one element, gains the number of (query, bank block)
+    rows that the floor emptied."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
+    _check_counter(escalations, qk)
+    _check_counter(floored_rows, qk, "floored_rows")
+    n, n_live = qk.shape[0], _check_lists(valid, _MAX_LISTS)
+    part = _block_lists(qk, n_live, top_k)
+    floor = (torch.empty(n, dtype=torch.int64, device=qk.device)
+             if n_live > 1 and not no_skip else None)
     vals, idx = _transposed_outputs(qk, top_k)
     lib = _lib()
     status = lib.memory_topk_chunked_launch(
-        qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        qk.shape[0], valid, _CK, top_k, int(bool(no_skip)), _DTYPES[qk.dtype],
-        _stream(qk))
+        qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(), n,
+        valid, _CK, top_k, int(bool(no_skip)), _DTYPES[qk.dtype], _stream(qk),
+        _ptr(part), _ptr(floor), _ptr(escalations), _ptr(floored_rows))
     build.check("memory_topk", lib, status)
     topk_select_chunked.launches += 1
     return vals, idx
@@ -231,51 +255,11 @@ def topk_select_resident(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     lib = _resident_lib()
     status = lib.memory_topk_resident_launch(
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        qk.shape[0], valid, _CK, top_k,
-        None if escalations is None else escalations.data_ptr(),
+        qk.shape[0], valid, _CK, top_k, _ptr(escalations),
         _DTYPES[qk.dtype], _stream(qk))
     build.check("memory_topk_resident", lib, status)
     topk_select_resident.launches += 1
     return vals, idx
-
-
-def _bank_splits(n: int, valid: int) -> tuple:
-    """(split_len, n_splits) of the split-bank selection: as many splits as
-    keep the 32-query tiles times the splits within one wave of two blocks
-    per SM (a second, partial wave would double the time), none shorter
-    than 512 tokens, at most 16; only splits below the fill."""
-    tiles = -(-n // 32)
-    want = max(1, min(_MAX_SPLITS, _TARGET_BLOCKS // tiles,
-                      -(-valid // 512)))
-    split_len = -(-max(valid, 1) // want)
-    split_len = -(-split_len // _SPLIT_UNIT) * _SPLIT_UNIT
-    return split_len, max(1, -(-valid // split_len))
-
-
-def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
-                     top_k: int, return_raw: bool = False):
-    """Top-k selection over a split bank -> (weights [N, top_k] fp32, ids
-    [N, top_k] int32), or the raw scores in place of the weights with
-    ``return_raw``.  Plain version: ``memory_affinity_topk`` (and
-    ``topk_scores`` for raw scores), ids as int32."""
-    if _on_cpu(qk, mk):
-        return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
-    valid = _check_selection(qk, mk, valid_tokens, top_k)
-    n = qk.shape[0]
-    split_len, n_splits = _bank_splits(n, valid)
-    part_v = torch.empty((n_splits, top_k, n), dtype=torch.float32,
-                         device=qk.device)
-    part_i = torch.empty((n_splits, top_k, n), dtype=torch.int32,
-                         device=qk.device)
-    out_v, out_i = _row_outputs(qk, top_k)
-    lib = _grid_lib()
-    status = lib.memory_topk_grid_launch(
-        qk.data_ptr(), mk.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), n, valid, _CK, top_k, split_len,
-        n_splits, int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk))
-    build.check("memory_topk_grid", lib, status)
-    topk_select_grid.launches += 1
-    return out_v, out_i
 
 
 def _live_blocks(valid: int) -> int:
@@ -310,32 +294,60 @@ def topk_select_iter(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     return out_v, out_i
 
 
+def _select_rows(name: str, qk, mk, valid_tokens, top_k: int,
+                 return_raw: bool, escalations):
+    """Launch library ``name``'s selection of the row-output stage (the sort
+    and grid kernels, ``csrc/topk_prune.cuh``) -> (out_v, out_i)
+    [N, top_k]."""
+    valid = _check_selection(qk, mk, valid_tokens, top_k)
+    _check_counter(escalations, qk)
+    n_live = _check_lists(valid, _MAX_ROW_LISTS)
+    part = _block_lists(qk, n_live, top_k)
+    out_v, out_i = _row_outputs(qk, top_k)
+    lib = _rows_lib(name)
+    status = getattr(lib, f"{name}_launch")(
+        qk.data_ptr(), mk.data_ptr(), _ptr(part), out_v.data_ptr(),
+        out_i.data_ptr(), qk.shape[0], valid, _CK, top_k, n_live,
+        int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk),
+        _ptr(escalations))
+    build.check(name, lib, status)
+    return out_v, out_i
+
+
 def topk_select_sort(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
                      top_k: int, return_raw: bool = False,
                      escalations: torch.Tensor | None = None):
     """Top-k selection by pruning each bank block's scores to the keys at or
     above :func:`sort_prune_threshold`, ranking those, and merging the
-    blocks' sorted top-k lists; outputs and plain version as
+    blocks' sorted top-k lists (with one live block the block kernel writes
+    the rows and no merge runs); outputs and plain version as
     :func:`topk_select_iter`.  ``escalations``, a CUDA int32 tensor of one
     element, gains the number of (query, bank block) rows whose survivors
     overflowed the kernel's candidate list and took its exact bisection."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
-    valid = _check_selection(qk, mk, valid_tokens, top_k)
-    _check_counter(escalations, qk)
-    n, n_live = qk.shape[0], _live_blocks(valid)
-    part = torch.empty((n, n_live, top_k), dtype=torch.int64,
-                       device=qk.device)
-    out_v, out_i = _row_outputs(qk, top_k)
-    lib = _sort_lib()
-    status = lib.memory_topk_sort_launch(
-        qk.data_ptr(), mk.data_ptr(), part.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), n, valid, _CK, top_k, n_live,
-        int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk),
-        None if escalations is None else escalations.data_ptr())
-    build.check("memory_topk_sort", lib, status)
+    out = _select_rows("memory_topk_sort", qk, mk, valid_tokens, top_k,
+                       return_raw, escalations)
     topk_select_sort.launches += 1
-    return out_v, out_i
+    return out
+
+
+def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
+                     top_k: int, return_raw: bool = False,
+                     escalations: torch.Tensor | None = None):
+    """The 'select' read's selection -> (weights [N, top_k] fp32, ids
+    [N, top_k] int32), or the raw scores in place of the weights with
+    ``return_raw``: the function of :func:`topk_select_sort`, and on the
+    card its device code (the shared row-output stage), with its own
+    library and launch count.  ``escalations`` as there.  Plain version:
+    ``memory_affinity_topk`` (``topk_scores`` for raw scores), ids as
+    int32."""
+    if _on_cpu(qk, mk):
+        return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
+    out = _select_rows("memory_topk_grid", qk, mk, valid_tokens, top_k,
+                       return_raw, escalations)
+    topk_select_grid.launches += 1
+    return out
 
 
 SORT_CAPACITY = 512  # memory_topk_sort.cu's kCap: candidates a row keeps
@@ -397,6 +409,35 @@ def merge_lists_t(lists: torch.Tensor, top_k: int):
     merged = lists.flatten(1).topk(top_k, dim=1).values
     vals, idx = unpack_keys(merged)
     return vals.T.contiguous(), idx.T.contiguous()
+
+
+DEAD_KEY = -2 ** 63  # the kernels' key 0 (sort_keys' shift): an empty slot
+
+
+def floored_lists(keys: torch.Tensor, top_k: int,
+                  floor: torch.Tensor) -> torch.Tensor:
+    """Plain statement of the newest-first selection's block lists: of each
+    (query, bank block) row of keys [..., B] (:func:`sort_keys`), the top_k
+    keys at or above both :func:`sort_prune_threshold` and the row's
+    ``floor`` [...], sorted, DEAD_KEY past those.  The kernel's floor is a
+    key the k-th key of some already ranked block of the query lies at or
+    above (:func:`list_floor`), so every winner of the query lies at or
+    above it too, and the merged lists (:func:`merge_lists_t`) are the plain
+    selection whatever the floors were.  A row whose keys all lie below its
+    floor is all DEAD_KEY (the kernel writes only its head: a merge never
+    advances past a dead key)."""
+    tau = torch.maximum(sort_prune_threshold(keys, top_k), floor)
+    kept = torch.where(keys >= tau[..., None], keys,
+                       torch.full_like(keys, DEAD_KEY))
+    return kept.topk(top_k, dim=-1).values
+
+
+def list_floor(lists: torch.Tensor) -> torch.Tensor:
+    """The floor that sorted block lists [..., k] raise their query's to:
+    the k-th key lowered to the least key of its score bits, or DEAD_KEY
+    (no floor) where the list holds fewer than k live keys."""
+    kth = lists[..., -1]
+    return torch.where(kth == DEAD_KEY, kth, kth >> 32 << 32)
 
 
 for _fn in (topk_select, topk_select_chunked, topk_select_resident,

@@ -15,6 +15,12 @@ by kernel.  ``--strategy`` ('auto', 'fused', 'select') and, for 'fused',
 ``--sel-method`` / ``--readout-method`` choose the memory read as
 ``EngineConfig`` does (default: 'auto' with the ``EVAVOS_*`` variables).
 Results also go to ``chiprun_out/torch_port_profile<--tag>.json``.
+
+Selection kernels that several reads launch (the pruned block stage's) are
+grouped under the selection of the read profiled.  For the newest-first
+selection ('fused' with ``--sel-method chunked``) the script also counts,
+over an untraced interact at each frame, the (query, bank block) rows its
+running floor emptied and those that escalated.
 """
 
 from __future__ import annotations
@@ -29,11 +35,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# the selection kernels, by the library that launched them: the default
+# and the newest-first selections share theirs, as the sort and the 'select'
+# read's do, so the read decides
+SELECTION_KERNELS = ("topk_prune_block_kernel", "topk_merge_t_kernel",
+                     "topk_rows_block_kernel", "topk_rows_merge_kernel",
+                     "topk_resident_kernel")
+# the selection of each 'fused' read's sel_method ('select' reads by grid)
+SELECTIONS = {"tournament": "memory_topk", "chunked": "memory_topk_chunked",
+              "resident": "memory_topk_resident"}
 GROUPS = (  # first match wins; lower-case substrings of kernel names
-    ("memory_topk kernels", ("topk_prune_block_kernel", "topk_merge_t_kernel")),
-    ("memory_topk chunked kernel", ("topk_chunked_kernel",)),
-    ("memory_topk_resident kernel", ("topk_resident_kernel",)),
-    ("memory_topk_grid kernels", ("topk_split_kernel", "topk_merge_kernel")),
     ("memory_readout kernel", ("readout_kernel",)),
     ("memory_readout_chunked kernel", ("readout_chunked_kernel",)),
     ("convolution / matmul", ("conv", "xmma", "cudnn", "gemm", "sm90", "sm80",
@@ -47,8 +58,11 @@ GROUPS = (  # first match wins; lower-case substrings of kernel names
 )
 
 
-def group_of(name: str) -> str:
+def group_of(name: str, selection: str) -> str:
+    """The group of a kernel's time; ``selection`` names the read's."""
     low = name.lower()
+    if any(k in low for k in SELECTION_KERNELS):
+        return f"{selection} kernels"
     for group, keys in GROUPS:
         if any(k in low for k in keys):
             return group
@@ -67,7 +81,7 @@ def busy_us(intervals) -> float:
     return total
 
 
-def trace(torch, fn) -> dict:
+def trace(torch, fn, selection: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,7 +105,7 @@ def trace(torch, fn) -> dict:
         raise RuntimeError("the profiler recorded no device activity")
     by_group = defaultdict(float)
     for name, (us, _) in by_kernel.items():
-        by_group[group_of(name)] += us
+        by_group[group_of(name, selection)] += us
     busy = busy_us(intervals)
     span = max(t for _, t in intervals) - min(s for s, _ in intervals)
     return dict(
@@ -102,6 +116,35 @@ def trace(torch, fn) -> dict:
                    sorted(by_group.items(), key=lambda kv: -kv[1])},
         top_kernels=[dict(name=n[:120], ms=us / 1e3, count=c) for n, (us, c) in
                      sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]])
+
+
+def floor_counts(torch, run) -> dict:
+    """The newest-first selection's rows over one ``run()``: (query, bank
+    block) rows ranked, emptied by its running floor, and escalated.  Wraps
+    the read's selector for the run only."""
+    from eva_vos_tpu_torch.kernels import memory_topk as M
+
+    dev = torch.device("cuda")
+    floored = torch.zeros(1, dtype=torch.int32, device=dev)
+    esc = torch.zeros(1, dtype=torch.int32, device=dev)
+    rows = [0]
+    select = M.SELECTORS["chunked"]
+
+    def counted(qk, mk, valid, top_k, no_skip=False):
+        valid_n = mk.shape[0] if valid is None else max(0, min(int(valid),
+                                                               mk.shape[0]))
+        rows[0] += qk.shape[0] * M._live_blocks(valid_n)
+        return select(qk, mk, valid, top_k, no_skip=no_skip,
+                      escalations=esc, floored_rows=floored)
+
+    M.SELECTORS["chunked"] = counted
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        M.SELECTORS["chunked"] = select
+    return dict(rows=rows[0], floored_rows=int(floored.item()),
+                escalated_rows=int(esc.item()))
 
 
 def main(argv=None) -> int:
@@ -156,14 +199,23 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) / 3 * 1e3
 
-    results = {"card": card, "strategy": engine.config.readout_strategy,
+    strategy = engine.config.readout_strategy
+    selection = ("memory_topk_grid" if strategy == "select" else
+                 SELECTIONS[engine.config.kernels.methods()[0]])
+    results = {"card": card, "strategy": strategy,
                "kernels": engine.config.kernels._asdict(),
-               "untraced_interact0_ms": untraced_ms}
-    print(f"[read] {engine.config.readout_strategy} {engine.config.kernels}")
+               "selection": selection, "untraced_interact0_ms": untraced_ms}
+    print(f"[read] {strategy} {engine.config.kernels}: {selection}")
+    if selection == "memory_topk_chunked":
+        runs = {"floor0": lambda: engine.interact(state0, feats, m0, 0),
+                "floor30": lambda: engine.interact(out, feats, m30, 30)}
+        for key, run in runs.items():
+            results[key] = floor_counts(torch, run)
+            print(f"[{key}] newest-first selection rows: {results[key]}")
     results["interact0"] = trace(
-        torch, lambda: engine.interact(state0, feats, m0, 0))
+        torch, lambda: engine.interact(state0, feats, m0, 0), selection)
     results["interact30"] = trace(
-        torch, lambda: engine.interact(out, feats, m30, 30))
+        torch, lambda: engine.interact(out, feats, m30, 30), selection)
     print(f"[untraced] interact at frame 0: {untraced_ms:.2f} ms "
           f"({59 / untraced_ms * 1e3:.1f} fps)")
     for key in ("interact0", "interact30"):

@@ -96,6 +96,10 @@ VARIANTS = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("valid", [3000, 1700, 20])
 def test_selection_variant_kernels(cuda, variant, dtype, valid):
+    """The resident kernel sums in the plain version's order on these
+    shapes (ids equal); the pruned block stage (grid, chunked) sums |k|^2
+    and the products in another order, so its ids may differ only at
+    near-ties, as the default selection's."""
     fn, counted = VARIANTS[variant]
     g = torch.Generator(device=cuda).manual_seed(valid)
     qk = torch.randn((300, 64), generator=g, device=cuda).to(dtype)
@@ -104,23 +108,31 @@ def test_selection_variant_kernels(cuda, variant, dtype, valid):
     vals, idx = fn(qk, mk, valid, 50)
     torch.cuda.synchronize()
     assert counted.launches == before + 1
-    pv, pi = topk_select_plain(qk, mk, valid, 50)
+    pv, pi = topk_select_plain(qk, mk, valid, 51)
     live = min(valid, 50)
-    torch.testing.assert_close(vals[:live], pv[:live], rtol=0, atol=1e-4)
-    assert torch.equal(idx[:live], pi[:live])
+    if variant == "resident":
+        torch.testing.assert_close(vals[:live], pv[:live], rtol=0, atol=1e-4)
+        assert torch.equal(idx[:live], pi[:live])
+    else:
+        _assert_same_selection(vals[:live].T, idx[:live].T, pv[:live + 1].T,
+                               pi[:live + 1].T, 1e-4)
     assert torch.all(vals[live:] == -1e30)
     assert int(idx.min()) >= 0 and int(idx.max()) < valid
 
 
 @pytest.mark.cuda
 def test_grid_selection_weights(cuda):
-    """The softmax weights of the split-bank selection (five splits here)."""
+    """The softmax weights of the 'select' read's selection (two bank
+    blocks here, merged); ids up to near-ties, as the raw scores."""
     g = torch.Generator(device=cuda).manual_seed(5)
     qk = torch.randn((300, 64), generator=g, device=cuda)
     mk = torch.randn((3000, 64), generator=g, device=cuda)
     w, idx = topk_select_grid(qk, mk, 2500, 50)
-    pw, pi = memory_affinity_topk(mk, qk, 50, 2500)
-    assert torch.equal(idx, pi.to(torch.int32))
+    vals, raw_idx = topk_select_grid(qk, mk, 2500, 50, return_raw=True)
+    assert torch.equal(idx, raw_idx)
+    pv, pi = topk_scores(mk, qk, 51, 2500)
+    _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
+    pw, _ = memory_affinity_topk(mk, qk, 50, 2500)
     torch.testing.assert_close(w, pw, rtol=1e-5, atol=1e-6)
 
 
@@ -138,22 +150,32 @@ def test_selection_variants_tie_to_lowest_id(cuda, variant, dtype):
                                   _oracle_topk(qk, mk, 1990, 50))
 
 
-def _tournament_rows(qk, mk, valid, top_k, return_raw=False,
-                     escalations=None):
-    """The default selection (topk_select, transposed [k, N]) as rows."""
-    vals, idx = topk_select(qk, mk, valid, top_k, escalations=escalations)
-    vals, idx = vals.T, idx.T
-    return (vals if return_raw else softmax_weights(vals)), idx
+def _as_rows(select):
+    """A transposed [k, N] selection as rows (raw scores or weights)."""
+    def rows(qk, mk, valid, top_k, return_raw=False, **kw):
+        vals, idx = select(qk, mk, valid, top_k, **kw)
+        vals, idx = vals.T, idx.T
+        return (vals if return_raw else softmax_weights(vals)), idx
+    return rows
 
 
 # the block selections as rows: select_topk's 'iterative' and 'sort'
-# methods, and the default read's selection, which shares the sort kernel's
-# block stage; and the wrapper that counts each one's launches
-ROW_SELECTORS = {"iterative": topk_select_iter, "sort": topk_select_sort,
-                 "tournament": _tournament_rows}
+# methods; the 'select' read's selection (grid), which runs the sort
+# kernel's device code; the default read's selection, which shares its
+# block stage, and the chunked read's, the default one newest first with a
+# running floor (chunked) or without (chunked_notau); and the wrapper that
+# counts each one's launches
+ROW_SELECTORS = {
+    "iterative": topk_select_iter, "sort": topk_select_sort,
+    "grid": topk_select_grid, "tournament": _as_rows(topk_select),
+    "chunked": _as_rows(topk_select_chunked),
+    "chunked_notau": _as_rows(partial(topk_select_chunked, no_skip=True))}
 COUNTED = {"iterative": topk_select_iter, "sort": topk_select_sort,
-           "tournament": topk_select}
-PRUNED = ("sort", "tournament")  # the selections with the pruned block stage
+           "grid": topk_select_grid, "tournament": topk_select,
+           "chunked": topk_select_chunked,
+           "chunked_notau": topk_select_chunked}
+# the selections with the pruned block stage
+PRUNED = ("sort", "grid", "tournament", "chunked", "chunked_notau")
 FRAME_TOKENS = 30 * 54  # key tokens of one 480x864 frame
 
 
@@ -279,8 +301,9 @@ def test_sort_kernel_identical_keys(cuda, method, dtype, top_k):
     (on scores) admits all 2,048 keys of a block, more than the candidate
     list holds.  Every (query, block) row of the two full blocks takes the
     exact escalation (the third, 404 tokens, fits), which splits the tie by
-    id: the ids are the lowest, as the plain version's.  The default
-    selection shares the block stage."""
+    id: the ids are the lowest, as the plain version's.  The other
+    selections share the block stage; the newest-first one's floor is the
+    tied score's least key, which admits the whole row all the same."""
     rng = np.random.default_rng(8)
     mk = torch.from_numpy(np.tile(rng.standard_normal((1, 64)), (5000, 1))
                           .astype(np.float32)).to(cuda, dtype)
@@ -303,8 +326,9 @@ def test_sort_kernel_escalation(cuda, method, dtype, top_k):
     hold 640 keys of a block's row above the threshold, more than the
     kernel's candidate list (512).  Every row of the first, full bank block
     escalates to the exact bisection (the second block, 952 tokens, keeps
-    320 near tokens and fits); the result stays exact, and the default
-    selection, which shares the block stage, escalates the same rows."""
+    320 near tokens and fits); the result stays exact, and the selections
+    that share the block stage escalate the same rows (the newest-first one
+    at most those: its floor may lift a row out of the overflow)."""
     rng = np.random.default_rng(9)
     u = rng.standard_normal(64)
     near = (np.arange(3000) % 128) < 40
@@ -315,11 +339,49 @@ def test_sort_kernel_escalation(cuda, method, dtype, top_k):
     esc = torch.zeros(1, dtype=torch.int32, device=cuda)
     vals, idx = ROW_SELECTORS[method](qk, mk, 3000, top_k, return_raw=True,
                                       escalations=esc)
-    assert int(esc) == _overflowing_rows(qk, mk, 3000, top_k) == 77
+    if method == "chunked":
+        # the floor from the newer block, where it arrives before the older
+        # block's row compacts, raises the threshold above that row's
+        # overflow: fewer rows escalate, depending on the blocks' timing
+        assert 0 <= int(esc) <= _overflowing_rows(qk, mk, 3000, top_k) == 77
+    else:
+        assert int(esc) == _overflowing_rows(qk, mk, 3000, top_k) == 77
     # 640 near tokens crowd each row's scores: compare up to near-ties,
     # across the last slot too
     pv, pi = topk_scores(mk, qk, top_k + 1, 3000)
     _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("no_skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_selection_floor_empties_older_rows(cuda, no_skip, dtype):
+    """Every key of the newest bank block scores above every older key for
+    every query (older keys have norms of ~80, so -|k|^2 sinks their
+    scores): the newest block's k-th key floors each older block's row.
+    The newest blocks are dispatched first (8,100 queries fill 4 waves of
+    the card before the older blocks start), so the floor empties older
+    rows, which the counter shows; at most all of them.  No_skip: none.
+    Either way the selection is the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    n, valid = 8100, 4 * 2048 + 1000
+    qk = torch.randn((n, 64), generator=g, device=cuda).to(dtype)
+    mk = 10 * torch.randn((valid, 64), generator=g, device=cuda)
+    mk[4 * 2048:] *= 0.01
+    mk = mk.to(dtype)
+    esc = torch.zeros(1, dtype=torch.int32, device=cuda)
+    floored = torch.zeros(1, dtype=torch.int32, device=cuda)
+    vals, idx = topk_select_chunked(qk, mk, valid, 50, no_skip=no_skip,
+                                    escalations=esc, floored_rows=floored)
+    older_rows = n * 4
+    if no_skip:
+        assert int(floored) == 0
+    else:
+        assert 0 < int(floored) <= older_rows
+    assert int(esc) == 0
+    assert int(idx.min()) >= 4 * 2048
+    pv, pi = topk_select_plain(qk, mk, valid, 51)
+    _assert_same_selection(vals.T, idx.T, pv.T, pi.T, 1e-4)
 
 
 @pytest.mark.cuda

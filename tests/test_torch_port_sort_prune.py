@@ -19,15 +19,27 @@ merges the blocks' sorted lists into the transposed [k, N] outputs; with one
 live block it writes the block's list and merges nothing.  Its plain
 statement, ``merge_lists_t`` over the rule's per-block lists, is held to the
 plain selection.
+
+The newest-first selection runs those kernels with a running floor per
+query: each block's row keeps its top k keys at or above both the threshold
+and a floor that the k-th key of some already ranked block of the query lies
+at or above (``floored_lists``, ``list_floor``).  Over random block orders
+and floors so chosen, the merged lists are the plain selection, ties
+included; one tie-heavy bank is also held to the JAX newest-first kernel
+(``chunked_topk_t``) in interpret mode.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from eva_vos_tpu.kernels.memory_topk import pallas_memory_topk
+
 from eva_vos_tpu_torch.kernels.memory_topk import _SELECT_BLOCK as BLOCK
-from eva_vos_tpu_torch.kernels.memory_topk import (SORT_CAPACITY,
-                                                   _live_blocks, merge_lists_t,
+from eva_vos_tpu_torch.kernels.memory_topk import (DEAD_KEY, SORT_CAPACITY,
+                                                   _live_blocks, floored_lists,
+                                                   list_floor, merge_lists_t,
                                                    sort_keys,
                                                    sort_prune_groups,
                                                    sort_prune_threshold,
@@ -36,7 +48,7 @@ from eva_vos_tpu_torch.kernels.memory_topk import (SORT_CAPACITY,
 from eva_vos_tpu_torch.ops.memory_attention import _scores
 
 LIVE_FLOOR = -2 ** 63 + 2 ** 32  # the least live key, shifted as sort_keys
-DEAD = -2 ** 63                   # the kernels' key 0 (a list's empty slot)
+DEAD = DEAD_KEY                   # the kernels' key 0 (a list's empty slot)
 
 
 def _rows(kind: str, rows: int, seed: int) -> np.ndarray:
@@ -143,16 +155,21 @@ def test_keys_order_as_score_desc_id_asc():
     assert (dead < LIVE_FLOOR).all() and (keys >= LIVE_FLOOR).all()
 
 
-def _block_lists(qk, mk, valid: int, top_k: int) -> torch.Tensor:
-    """The block stage's sorted lists [N, blocks, top_k]: per live 2,048-token
-    bank block, the top_k keys at or above the pruning threshold, empty
-    slots DEAD."""
+def _bank_keys(qk, mk, valid: int) -> torch.Tensor:
+    """The keys [N, blocks, 2,048] of the live 2,048-token bank blocks."""
     blocks = _live_blocks(valid)
     scores = torch.zeros((qk.shape[0], blocks * BLOCK))
     m = min(mk.shape[0], blocks * BLOCK)
     scores[:, :m] = _scores(mk, qk, valid)[:, :m]
     ids = torch.arange(blocks * BLOCK).expand_as(scores)
-    keys = sort_keys(scores, ids, ids < valid).unflatten(-1, (blocks, BLOCK))
+    return sort_keys(scores, ids, ids < valid).unflatten(-1, (blocks, BLOCK))
+
+
+def _block_lists(qk, mk, valid: int, top_k: int) -> torch.Tensor:
+    """The block stage's sorted lists [N, blocks, top_k]: per live 2,048-token
+    bank block, the top_k keys at or above the pruning threshold, empty
+    slots DEAD."""
+    keys = _bank_keys(qk, mk, valid)
     tau = sort_prune_threshold(keys, top_k)
     kept = torch.where(keys >= tau[..., None], keys, torch.full_like(keys, DEAD))
     return kept.topk(top_k, dim=-1).values
@@ -195,3 +212,123 @@ def test_unpack_keys_inverts_sort_keys():
     assert torch.equal(vals, scores) and torch.equal(got, ids.to(torch.int32))
     dead_v, dead_i = unpack_keys(torch.full((3,), DEAD))
     assert (dead_v == -1e30).all() and (dead_i == 0).all()
+
+
+def _bank(kind: str, rng, n: int, m: int, ck: int = 64):
+    """(qk [n, ck], mk [m, ck]) fp32.  ties: each key 40 times over the bank;
+    clustered: every token a query key plus noise, the tokens of query q
+    packed into the last bank block, so that the floor from that block
+    empties the other blocks' rows of that query."""
+    qk = rng.standard_normal((n, ck))
+    if kind == "random":
+        mk = rng.standard_normal((m, ck))
+    elif kind == "ties":
+        mk = np.tile(rng.standard_normal((-(-m // 40), ck)), (40, 1))[:m]
+    else:
+        mk = 0.3 * rng.standard_normal((m, ck))
+        near = np.arange(m - 8 * n, m)
+        mk[near] = qk[near % n] + 0.05 * rng.standard_normal((8 * n, ck))
+    return (torch.from_numpy(qk.astype(np.float32)),
+            torch.from_numpy(mk.astype(np.float32)))
+
+
+def _floored_run(keys, top_k: int, order, pick):
+    """The block lists [N, blocks, top_k] when blocks are ranked in
+    ``order`` and each row's floor is ``pick(seen lists, seen keys)`` [N]
+    over the blocks ranked before it."""
+    lists = torch.full(keys.shape[:2] + (top_k,), DEAD)
+    seen = []
+    for b in order:
+        floor = pick(lists[:, seen], keys[:, seen])
+        lists[:, b] = floored_lists(keys[:, b], top_k, floor)
+        seen.append(b)
+    return lists
+
+
+def _kth_lowered(keys, top_k: int):
+    """list_floor of the exact top_k of keys [N, ...] (DEAD where fewer)."""
+    flat = keys.flatten(1)
+    if flat.shape[1] < top_k:
+        return torch.full((keys.shape[0],), DEAD)
+    return list_floor(flat.topk(top_k, dim=1).values)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("kind", ["random", "ties", "clustered"])
+@pytest.mark.parametrize("valid,top_k", [(9000, 50), (5000, 256), (4097, 8)])
+def test_floored_block_lists_merge_to_the_plain_selection(kind, seed, valid,
+                                                          top_k):
+    """Random block orders, and per query a random floor among: none, the
+    largest floor any seen block's list raised (the kernel's atomicMax),
+    one seen list's floor, and the lowered k-th key of a random set of seen
+    blocks (at or below the true k-th key, as the rule requires).  The
+    merged lists are the plain selection, ties included."""
+    rng = np.random.default_rng([seed, valid, top_k])
+    qk, mk = _bank(kind, rng, 6, valid)
+    keys = _bank_keys(qk, mk, valid)
+    blocks = keys.shape[1]
+    dead = torch.full((6,), DEAD)
+
+    def pick(seen_lists, seen_keys):
+        if seen_lists.shape[1] == 0:
+            return dead
+        floors = list_floor(seen_lists)                  # [N, seen]
+        subset = rng.random(seen_keys.shape[1]) < 0.5
+        options = torch.stack([
+            dead, floors.amax(1),
+            floors[:, rng.integers(seen_lists.shape[1])],
+            _kth_lowered(seen_keys[:, torch.from_numpy(subset)], top_k)], 1)
+        return options[torch.arange(6), torch.from_numpy(rng.integers(4, size=6))]
+
+    for order in (rng.permutation(blocks), range(blocks - 1, -1, -1)):
+        lists = _floored_run(keys, top_k, order, pick)
+        vals, idx = merge_lists_t(lists, top_k)
+        want_v, want_i = topk_select_plain(qk, mk, valid, top_k)
+        assert torch.equal(vals, want_v) and torch.equal(idx, want_i)
+
+
+def _kernel_floor(seen_lists, _seen_keys):
+    """The kernel's floor once the seen blocks have published theirs."""
+    if seen_lists.shape[1] == 0:
+        return torch.full(seen_lists.shape[:1], DEAD)
+    return list_floor(seen_lists).amax(1)
+
+
+def test_floor_empties_rows_that_cannot_hold_a_winner():
+    """A query's near tokens all in the newest block: ranked newest first,
+    that block's k-th key floors every older block's row of the query,
+    which the kernel then empties without ranking it; ranked oldest first,
+    no row is emptied.  Both merge to the plain selection."""
+    rng = np.random.default_rng(11)
+    qk, mk = _bank("clustered", rng, 6, 9000)
+    keys = _bank_keys(qk, mk, 9000)
+    blocks = keys.shape[1]
+    want = topk_select_plain(qk, mk, 9000, 8)
+    emptied = {}
+    for name, order in (("newest", range(blocks - 1, -1, -1)),
+                        ("oldest", range(blocks))):
+        lists = _floored_run(keys, 8, order, _kernel_floor)
+        got = merge_lists_t(lists, 8)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        emptied[name] = int((lists[..., 0] == DEAD).sum())
+    assert emptied == {"newest": 6 * (blocks - 1), "oldest": 0}
+
+
+def test_floored_lists_match_the_jax_newest_first_kernel():
+    """Each key 40 times over a 5,000-token bank (ties across all three
+    blocks): the floored lists, ranked newest first with the kernel's
+    floor, merge to what chunked_topk_t (the JAX newest-first kernel, in
+    interpret mode) selects, ids included."""
+    rng = np.random.default_rng(12)
+    qk, mk = _bank("ties", rng, 8, 5000)
+    keys = _bank_keys(qk, mk, 5000)
+    lists = _floored_run(keys, 16, range(keys.shape[1] - 1, -1, -1),
+                         _kernel_floor)
+    vals, idx = merge_lists_t(lists, 16)
+    ref_v, ref_i = pallas_memory_topk(
+        jnp.asarray(mk.numpy()), jnp.asarray(qk.numpy()), 16, 5000,
+        block_q=8, block_m=512, interpret=True, method="chunked",
+        return_raw=True)
+    np.testing.assert_array_equal(idx.T.numpy(), np.asarray(ref_i))
+    np.testing.assert_allclose(vals.T.numpy(), np.asarray(ref_v), rtol=1e-5,
+                               atol=1e-5)
