@@ -8,16 +8,17 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
 2. build the CUDA kernels from ``eva_vos_tpu_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once); print each kernel's registers and
    spills, and the HMMA (tensor-core) instructions in the SASS of the
-   libraries of the pruned selections (``cuobjdump``): the default and
-   newest-first (``memory_topk``), the 'select' read's (``memory_topk_grid``)
-   and the sort selection's;
+   libraries of the selections that score bf16 keys on the tensor cores
+   (``cuobjdump``): the default and newest-first (``memory_topk``), the
+   resident (``memory_topk_resident``), the 'select' read's
+   (``memory_topk_grid``) and the sort selection's;
 3. the six top-k selection kernels (oldest first, newest first with the
-   running floor, two-pass resident, the 'select' read's, and through
-   ``select_topk`` iterative extraction, its default, and per-block sort)
-   against their plain versions at the engine's blocked-step shape
-   (N = 5 x 1620 queries, CK = 64, top_k = 50, bf16) on banks of 1, 12 and
-   72 slots of 1620 tokens, random and clustered; all but the resident
-   kernel also at a single-frame step (N = 1620).  The newest-first
+   running floor, resident (query tiles walking the bank newest first),
+   the 'select' read's, and through ``select_topk`` iterative extraction,
+   its default, and per-block sort) against their plain versions at the
+   engine's blocked-step shape (N = 5 x 1620 queries, CK = 64, top_k = 50,
+   bf16) on banks of 1, 12 and 72 slots of 1620 tokens, random and
+   clustered, and at a single-frame step (N = 1620).  The newest-first
    selection is also checked and timed with ``no_skip`` (its floor off).
    The library yardstick of every selection is the dense score product as
    one ``torch.addmm`` (TF32 off and on, the faster kept) and ``torch.topk``
@@ -26,6 +27,9 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    block and merge kernels' device times (``torch.profiler``; with one live
    bank block no merge is launched), the rows that took their exact
    escalation and, for the newest-first one, the rows its floor emptied;
+   for the resident one its bank segments, its compactions of full
+   candidate buffers and, with several segments, its block and merge
+   kernels' device times;
    and, on the 72-slot clustered bank at N = 8100, the sort kernel at
    top_k = 256, where each row keeps more candidates than the kernel ranks
    one by one;
@@ -99,10 +103,12 @@ PROB_ATOL, PROB_FRAC = 5e-2, 1e-3
 
 
 # the block and merge kernels of the selections timed one by one: those
-# of the pruned block stage (the transposed and the row-output kernels)
+# of the pruned block stage (the transposed and the row-output kernels),
+# and the resident kernel with the transposed merge of its segments
 SPLIT_KERNELS = {
     "memory_topk": ("topk_prune_block_kernel", "topk_merge_t_kernel"),
     "memory_topk_chunked": ("topk_prune_block_kernel", "topk_merge_t_kernel"),
+    "memory_topk_resident": ("topk_resident_kernel", "topk_merge_t_kernel"),
     "memory_topk_grid": ("topk_rows_block_kernel", "topk_rows_merge_kernel"),
     "memory_topk_sort": ("topk_rows_block_kernel", "topk_rows_merge_kernel")}
 # the sort kernel's largest top_k: ~300 keys of a row survive its pruning,
@@ -112,7 +118,8 @@ SORT_WIDE_K = 256
 # the selections that return [N, k] rows (softmax weights by default)
 ROW_SELECTIONS = ("memory_topk_grid", "memory_topk_iter", "memory_topk_sort")
 # the selections also checked and timed at a single-frame step (N = 1620)
-SINGLE_FRAME = ("memory_topk", "memory_topk_chunked") + ROW_SELECTIONS
+SINGLE_FRAME = ("memory_topk", "memory_topk_chunked",
+                "memory_topk_resident") + ROW_SELECTIONS
 # select_topk's arguments that reach each entry-point kernel: no method for
 # its default, the iterative kernel
 ENTRY_KWARGS = {"memory_topk_iter": {}, "memory_topk_sort": {"method": "sort"}}
@@ -357,7 +364,8 @@ def kernel_phases(torch, results):
                                            topk_select_grid, topk_select_plain,
                                            topk_select_resident,
                                            topk_select_sort)
-    from eva_vos_tpu_torch.kernels.memory_topk import _SELECT_BLOCK
+    from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
+                                                       resident_segments)
     from eva_vos_tpu_torch.ops.memory_attention import (_scores,
                                                         memory_affinity_topk,
                                                         softmax_weights)
@@ -368,6 +376,7 @@ def kernel_phases(torch, results):
         torch.bfloat16)
     mv2 = torch.randn((2, max(FILLS) * HW_TOKENS, CV), generator=gen,
                       device=dev).to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     esc = torch.zeros(1, dtype=torch.int32, device=dev)
     floored = torch.zeros(1, dtype=torch.int32, device=dev)
     sel_rows, ro_rows = [], []
@@ -380,7 +389,7 @@ def kernel_phases(torch, results):
                                    escalations=esc, floored_rows=floored)
 
     def resident_counted(q, mk, valid, top_k):
-        return topk_select_resident(q, mk, valid, top_k, escalations=esc)
+        return topk_select_resident(q, mk, valid, top_k, compactions=esc)
 
     def grid_transposed(q, mk, valid, top_k):
         vals, idx = topk_select_grid(q, mk, valid, top_k, return_raw=True,
@@ -399,8 +408,8 @@ def kernel_phases(torch, results):
     def entry_timed(kwargs):
         return lambda q, mk, valid: select_topk(mk, q, TOP_K, valid, **kwargs)
 
-    # (name in the kernels line, transposed selection (counting escalations
-    # where the kernel has them), the call timed)
+    # (name in the kernels line, transposed selection (counting escalations,
+    # or the resident kernel's compactions, in esc), the call timed)
     selectors = (
         ("memory_topk", topk_counted,
          lambda q, mk, valid: topk_select(q, mk, valid, TOP_K)),
@@ -467,8 +476,17 @@ def kernel_phases(torch, results):
                                bound_ms=bound, bound_by=by)
                     note = ""
                     if name == "memory_topk_resident":
-                        row["escalated_blocks"] = int(esc.item())
-                        note = f", escalated blocks {row['escalated_blocks']}"
+                        segs = resident_segments(n, valid, TOP_K, sms)
+                        row.update(compactions=int(esc.item()), segments=segs)
+                        note = (f", segments {segs}, compactions "
+                                f"{row['compactions']} ("
+                                f"{row['compactions'] / n:.2f} a query)")
+                        if segs > 1:
+                            row.update(split_ms(
+                                torch, lambda: timed(q, mk, valid), name))
+                            note += (f", block kernel {row['block_ms']:.3f} "
+                                     f"ms + merge kernel "
+                                     f"{row['merge_ms']:.3f} ms")
                     elif name in SPLIT_KERNELS:
                         row.update(split_ms(
                             torch, lambda: timed(q, mk, valid), name,

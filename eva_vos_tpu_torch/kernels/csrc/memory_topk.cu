@@ -43,13 +43,14 @@
 //     the answer: each warp writes them back over its own row of the score
 //     tile, and the block stores them transposed, rows t of [k, N] as
 //     16-query runs; the merge is not launched.
-//  2. topk_merge_t_kernel: 32 queries a block, a half warp per query: lane
-//     h holds the largest head of lists h, h + 16, ...; each output slot is
-//     the half warp's largest head (four shuffle steps of 64-bit keys), and
-//     only the lane whose list it came from advances that list.  The merged
-//     keys are staged in shared memory and stored transposed, each row t of
-//     [k, N] one 128-byte run of the 32 queries' scores (and of their ids):
-//     no [N, k] intermediate and no transpose.
+//  2. topk_merge_t_kernel (topk_prune.cuh, shared with
+//     memory_topk_resident.cu): 32 queries a block, a half warp per query:
+//     lane h holds the largest head of lists h, h + 16, ...; each output
+//     slot is the half warp's largest head (four shuffle steps of 64-bit
+//     keys), and only the lane whose list it came from advances that list.
+//     The merged keys are staged in shared memory and stored transposed,
+//     each row t of [k, N] one 128-byte run of the 32 queries' scores (and
+//     of their ids): no [N, k] intermediate and no transpose.
 //
 // The newest-first selection: the same kernels, with a running floor
 // ------------------------------------------------------------------
@@ -84,12 +85,6 @@
 namespace {
 
 using namespace prune;
-
-constexpr int kMergeQ = 32;                  // queries per merge block
-constexpr int kMergeThreads = 16 * kMergeQ;  // a half warp per query
-// Lists the merge takes (4,194,304 tokens): its u16 heads and staged keys
-// fit the shared memory up to here.
-constexpr int kMaxLists = 2048;
 
 // kNewest: grid row y is bank block n_live - 1 - y, and floor (null, or
 // the running floors [n]) and floored (null, or one int32 counting the rows
@@ -137,76 +132,6 @@ topk_prune_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
   }
 }
 
-__global__ void __launch_bounds__(kMergeThreads)
-topk_merge_t_kernel(const u64* __restrict__ part, float* __restrict__ vals,
-                    int* __restrict__ idx, int n, int top_k, int n_lists) {
-  // [kMergeQ][stride] merged keys (an odd stride, so that the transposed
-  // reads spread over the banks), then [kMergeQ][n_lists] u16 list heads
-  extern __shared__ __align__(16) u64 merged[];
-  const int stride = top_k | 1;
-  unsigned short* heads =
-      reinterpret_cast<unsigned short*>(merged + kMergeQ * stride);
-  const int hl = threadIdx.x & 15;  // lane in the half warp
-  const int qq = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kMergeQ;
-  const bool live = q0 + qq < n;
-  unsigned short* head = heads + qq * n_lists;
-  const u64* lists =
-      part + static_cast<size_t>(live ? q0 + qq : 0) * n_lists * top_k;
-  u64* out = merged + qq * stride;
-
-  for (int b = hl; b < n_lists; b += 16) head[b] = 0;
-  __syncwarp();
-  // this lane's largest head and its list (key 0: none left)
-  auto best_head = [&](u64& key, int& list) {
-    key = 0ull;
-    list = 0;
-    if (!live) return;
-    for (int b = hl; b < n_lists; b += 16) {
-      const int h = head[b];
-      const u64 k = h < top_k ? lists[static_cast<size_t>(b) * top_k + h] : 0ull;
-      if (k > key) {
-        key = k;
-        list = b;
-      }
-    }
-  };
-  u64 mine;
-  int list;
-  best_head(mine, list);
-  // both half warps take top_k steps, so the shuffles stay converged
-  for (int t = 0; t < top_k; ++t) {
-    u64 win = mine;
-#pragma unroll
-    for (int off = 8; off; off >>= 1) {
-      const u64 o = __shfl_xor_sync(kFull, win, off);
-      win = o > win ? o : win;
-    }
-    if (hl == 0) out[t] = win;  // 0 once only dead keys are left
-    if (win != 0ull && mine == win) {  // live keys are distinct: one lane
-      ++head[list];
-      best_head(mine, list);
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < top_k * kMergeQ; e += kMergeThreads) {
-    const int t = e / kMergeQ;
-    const int j = e % kMergeQ;
-    if (q0 + j < n) {
-      float v;
-      int id;
-      unpack(merged[j * stride + t], v, id);
-      vals[static_cast<size_t>(t) * n + q0 + j] = v;
-      idx[static_cast<size_t>(t) * n + q0 + j] = id;
-    }
-  }
-}
-
-inline size_t merge_smem_bytes(int top_k, int n_lists) {
-  return sizeof(u64) * kMergeQ * static_cast<size_t>(top_k | 1) +
-         sizeof(unsigned short) * kMergeQ * static_cast<size_t>(n_lists);
-}
-
 template <typename T, int CK, bool kNewest>
 int launch_pruned(const void* qk, const void* mk, u64* part, float* vals,
                   int* idx, int n, int valid, int top_k, int n_live,
@@ -223,15 +148,7 @@ int launch_pruned(const void* qk, const void* mk, u64* part, float* vals,
       n, valid, top_k, floor, escalations, floored);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_live == 1) return static_cast<int>(err);
-  const size_t merge_smem = merge_smem_bytes(top_k, n_live);
-  err = cudaFuncSetAttribute(topk_merge_t_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(merge_smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  topk_merge_t_kernel<<<(n + kMergeQ - 1) / kMergeQ, kMergeThreads,
-                        merge_smem, stream>>>(part, vals, idx, n, top_k,
-                                              n_live);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge_t<kMergeQ>(part, vals, idx, n, top_k, n_live, stream);
 }
 
 // Both selections' checks and launch; floor as for topk_prune_block_kernel,

@@ -4,7 +4,9 @@
 // memory_topk_sort.cu (select_topk's 'sort' method) and memory_topk_grid.cu
 // (the 'select' read's selection).  A block scores a tile of 16 queries
 // against one 2,048-token bank block and leaves, for each query, the block's
-// exact top k as sorted 64-bit keys.
+// exact top k as sorted 64-bit keys.  memory_topk_resident.cu takes its key
+// format, tensor-core scoring pieces, warp sort and the transposed merge
+// (topk_merge_t_kernel, after the block stage).
 //
 // A candidate is one 64-bit key: the score's bits, mapped so that unsigned
 // order is float order (ord), in the high word and ~id in the low word, so
@@ -562,6 +564,106 @@ __device__ __forceinline__ void select_row(const unsigned* row, int lo,
 // dead slots).
 __host__ __device__ __forceinline__ int live_blocks(int valid) {
   return valid > kBlk ? (valid + kBlk - 1) / kBlk : 1;
+}
+
+// The transposed merge: per query, the top_k keys of its n_lists sorted
+// lists part[N, n_lists, k] -> vals/idx [k, N].  memory_topk.cu merges its
+// bank blocks' lists with it, memory_topk_resident.cu its bank segments'.
+// QB queries a block, a half warp per query: lane h holds the largest head
+// of lists h, h + 16, ...; each output slot is the half warp's largest head
+// (four shuffle steps of 64-bit keys), and only the lane whose list it came
+// from advances that list.  The merged keys are staged in shared memory and
+// stored transposed, each row t of [k, N] one run of the QB queries' scores
+// (and of their ids): no [N, k] intermediate and no transpose.  (A
+// template, so that a file that includes this header and launches no merge
+// compiles none.)
+
+constexpr int kMergeQ = 32;  // queries a merge block: 128-byte output runs
+// Lists the merge takes (4,194,304 tokens of 2,048-token blocks): its u16
+// heads and staged keys fit the shared memory up to here.
+constexpr int kMaxLists = 2048;
+
+template <int QB>
+__global__ void __launch_bounds__(16 * QB)
+topk_merge_t_kernel(const u64* __restrict__ part, float* __restrict__ vals,
+                    int* __restrict__ idx, int n, int top_k, int n_lists) {
+  // [QB][stride] merged keys (an odd stride, so that the transposed reads
+  // spread over the banks), then [QB][n_lists] u16 list heads
+  extern __shared__ __align__(16) u64 merged[];
+  const int stride = top_k | 1;
+  unsigned short* heads =
+      reinterpret_cast<unsigned short*>(merged + QB * stride);
+  const int hl = threadIdx.x & 15;  // lane in the half warp
+  const int qq = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * QB;
+  const bool live = q0 + qq < n;
+  unsigned short* head = heads + qq * n_lists;
+  const u64* lists =
+      part + static_cast<size_t>(live ? q0 + qq : 0) * n_lists * top_k;
+  u64* out = merged + qq * stride;
+
+  for (int b = hl; b < n_lists; b += 16) head[b] = 0;
+  __syncwarp();
+  // this lane's largest head and its list (key 0: none left)
+  auto best_head = [&](u64& key, int& list) {
+    key = 0ull;
+    list = 0;
+    if (!live) return;
+    for (int b = hl; b < n_lists; b += 16) {
+      const int h = head[b];
+      const u64 k = h < top_k ? lists[static_cast<size_t>(b) * top_k + h] : 0ull;
+      if (k > key) {
+        key = k;
+        list = b;
+      }
+    }
+  };
+  u64 mine;
+  int list;
+  best_head(mine, list);
+  // both half warps take top_k steps, so the shuffles stay converged
+  for (int t = 0; t < top_k; ++t) {
+    u64 win = mine;
+#pragma unroll
+    for (int off = 8; off; off >>= 1) {
+      const u64 o = __shfl_xor_sync(kFull, win, off);
+      win = o > win ? o : win;
+    }
+    if (hl == 0) out[t] = win;  // 0 once only dead keys are left
+    if (win != 0ull && mine == win) {  // live keys are distinct: one lane
+      ++head[list];
+      best_head(mine, list);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < top_k * QB; e += 16 * QB) {
+    const int t = e / QB;
+    const int j = e % QB;
+    if (q0 + j < n) {
+      float v;
+      int id;
+      unpack(merged[j * stride + t], v, id);
+      vals[static_cast<size_t>(t) * n + q0 + j] = v;
+      idx[static_cast<size_t>(t) * n + q0 + j] = id;
+    }
+  }
+}
+
+// The merge of part's lists on `stream`; n_lists <= kMaxLists.  Returns a
+// cudaError_t code.
+template <int QB>
+int launch_merge_t(const u64* part, float* vals, int* idx, int n, int top_k,
+                   int n_lists, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(u64) * QB * static_cast<size_t>(top_k | 1) +
+      sizeof(unsigned short) * QB * static_cast<size_t>(n_lists);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_merge_t_kernel<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_merge_t_kernel<QB><<<(n + QB - 1) / QB, 16 * QB, smem, stream>>>(
+      part, vals, idx, n, top_k, n_lists);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The row-output stage: [N, k] rows of softmax weights (or raw scores) and

@@ -13,7 +13,11 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
   newest first and a running floor per query in place of the TPU kernel's
   tau skip; :func:`floored_lists` and :func:`list_floor` state the floor;
 * :func:`topk_select_resident` — ``resident_topk_t`` (``_kernel_resident``),
-  two passes with a threshold, kernel ``csrc/memory_topk_resident.cu``;
+  one block per query tile walks its segment of the L2-resident bank
+  newest first on the tensor cores, keeping a running k-th key per query
+  and a compacted candidate buffer, kernel ``csrc/memory_topk_resident.cu``
+  (segments merged by the default selection's merge);
+  :func:`resident_lists` states the walk;
 * :func:`topk_select_grid` — ``pallas_memory_topk(method="grid")``
   (``_kernel_grid``), kernel ``csrc/memory_topk_grid.cu``: the sort
   kernel's function and device code (the row-output stage of
@@ -103,7 +107,12 @@ def _rows_lib(name: str) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _resident_lib() -> ctypes.CDLL:
     return _bind("memory_topk_resident", "memory_topk_resident_launch",
-                 [_P] * 4 + [_I] * 4 + [_P, _I, _P])
+                 [_P] * 5 + [_I] * 5 + [_P, _I, _P])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_operand(name, x, dtype=None):
@@ -170,7 +179,8 @@ def _row_selection_plain(qk, mk, valid_tokens, top_k: int, return_raw: bool):
 
 def _block_lists(qk, n_live: int, top_k: int):
     """The block selections' scratch [N, n_live, top_k] of 64-bit keys, or
-    None with one live bank block (no merge)."""
+    None with one live bank block (no merge); the resident selection's for
+    its segments."""
     if n_live == 1:
         return None
     return torch.empty((qk.shape[0], n_live, top_k), dtype=torch.int64,
@@ -243,19 +253,27 @@ def topk_select_chunked(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
 
 
 def topk_select_resident(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
-                         top_k: int, escalations: torch.Tensor | None = None):
-    """Top-k selection in two passes over the L2-resident bank; plain:
-    topk_select_plain.  ``escalations``, a CUDA int32 tensor of one element,
-    gains the number of 32-query blocks that escalated to the full merge."""
+                         top_k: int, compactions: torch.Tensor | None = None):
+    """Top-k selection by query tiles that walk the L2-resident bank newest
+    first with a running k-th key per query and a compacted candidate
+    buffer (:func:`resident_lists` states the walk), in
+    :func:`resident_segments` segments whose sorted lists the default
+    selection's merge joins; plain: topk_select_plain.  ``compactions``, a
+    CUDA int32 tensor of one element, gains the number of compactions of
+    candidate buffers during the walks (:func:`resident_lists` counts
+    them), summed over queries and segments."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
-    _check_counter(escalations, qk)
+    _check_counter(compactions, qk, "compactions")
+    n = qk.shape[0]
+    segments = resident_segments(n, valid, top_k, _sm_count(qk.device))
+    part = _block_lists(qk, segments, top_k)
     vals, idx = _transposed_outputs(qk, top_k)
     lib = _resident_lib()
     status = lib.memory_topk_resident_launch(
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        qk.shape[0], valid, _CK, top_k, _ptr(escalations),
+        _ptr(part), n, valid, _CK, top_k, segments, _ptr(compactions),
         _DTYPES[qk.dtype], _stream(qk))
     build.check("memory_topk_resident", lib, status)
     topk_select_resident.launches += 1
@@ -438,6 +456,81 @@ def list_floor(lists: torch.Tensor) -> torch.Tensor:
     (no floor) where the list holds fewer than k live keys."""
     kth = lists[..., -1]
     return torch.where(kth == DEAD_KEY, kth, kth >> 32 << 32)
+
+
+RESIDENT_STEP = 128  # memory_topk_resident.cu's kStep: tokens a step
+
+
+def resident_geometry(top_k: int) -> tuple:
+    """(queries a block, candidate buffer's keys) of the resident kernel:
+    (64, 256) for top_k <= 128, else (32, 512); after a compaction a buffer
+    holds top_k <= capacity - RESIDENT_STEP keys, so a step never
+    overflows it."""
+    return (64, 256) if top_k <= 128 else (32, 512)
+
+
+def resident_segments(n: int, valid: int, top_k: int, sms: int = 132) -> int:
+    """Bank segments S of the resident kernel: as many as the query tiles
+    leave SMs for (``sms`` // tiles), at most one a live 2,048-token bank
+    block, at least one.  N = 8,100 (127 tiles of 64) gives 1; N = 1,620
+    (26 tiles) gives 5 on a 132-SM card at 5 or more live blocks."""
+    tiles = -(-n // resident_geometry(top_k)[0])
+    live = -(-valid // _SELECT_BLOCK)
+    return max(1, min(live, sms // tiles))
+
+
+def resident_lists(keys: torch.Tensor, valid: int, top_k: int,
+                   segments: int = 1):
+    """Plain statement of the resident kernel's walk over keys [N, >= valid]
+    (:func:`sort_keys`; tokens past ``valid`` are never admitted) ->
+    (sorted lists [N, segments, top_k], DEAD_KEY past the live keys;
+    compactions during the walks, summed over queries and segments).
+
+    The live bank is cut into RESIDENT_STEP-token steps; segment s takes
+    steps [s * T // S, (s + 1) * T // S) of the T = ceil(valid / 128), and
+    walks them from the last (newest) to the first.  Per (query, segment),
+    a step admits every key above the running threshold (DEAD_KEY, the
+    kernel's 0, until the first compaction) into the candidate buffer.
+    Queries go in tiles of :func:`resident_geometry`'s queries (rows
+    [t Q, (t + 1) Q)), one kernel block a (tile, segment): after a step
+    other than the segment's last in which some buffer of the tile holds
+    more than capacity - RESIDENT_STEP keys, every buffer of the tile with
+    more than top_k keys is compacted: cut to its top_k keys, the k-th of
+    which becomes its threshold.  After the walk the buffer's top_k keys
+    are the segment's list.  A threshold is the k-th key of a subset of the
+    tokens, so no winner is refused and :func:`merge_lists_t` of the lists
+    is the plain selection."""
+    n = keys.shape[0]
+    queries, cap = resident_geometry(top_k)
+    tile = torch.arange(n) // queries
+    n_steps = -(-valid // RESIDENT_STEP)
+    dead = torch.full((n, RESIDENT_STEP), DEAD_KEY, dtype=torch.int64)
+    lists = torch.full((n, segments, top_k), DEAD_KEY, dtype=torch.int64)
+    compactions = 0
+    for seg in range(segments):
+        first, last = seg * n_steps // segments, (seg + 1) * n_steps // segments
+        # the buffer as a set: its keys, DEAD_KEY in the free slots
+        buf = torch.full((n, cap), DEAD_KEY, dtype=torch.int64)
+        count = torch.zeros(n, dtype=torch.int64)
+        thr = torch.full((n,), DEAD_KEY, dtype=torch.int64)
+        for step in range(last - 1, first - 1, -1):
+            lo = step * RESIDENT_STEP
+            hi = min(lo + RESIDENT_STEP, valid)
+            admit = keys[:, lo:hi] > thr[:, None]
+            new = torch.where(admit, keys[:, lo:hi], dead[:, :hi - lo])
+            count += admit.sum(1)
+            buf = torch.cat([buf, new], 1).topk(cap, dim=1).values
+            if step == first:  # the last compaction follows the walk
+                break
+            wave = torch.zeros(int(tile[-1]) + 1, dtype=torch.bool)
+            wave[tile[count > cap - RESIDENT_STEP]] = True
+            full = wave[tile] & (count > top_k)
+            compactions += int(full.sum())
+            thr = torch.where(full, buf[:, top_k - 1], thr)
+            buf[full, top_k:] = DEAD_KEY
+            count = torch.where(full, torch.full_like(count, top_k), count)
+        lists[:, seg] = buf.topk(top_k, dim=1).values
+    return lists, compactions
 
 
 for _fn in (topk_select, topk_select_chunked, topk_select_resident,

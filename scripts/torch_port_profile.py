@@ -16,11 +16,14 @@ by kernel.  ``--strategy`` ('auto', 'fused', 'select') and, for 'fused',
 ``EngineConfig`` does (default: 'auto' with the ``EVAVOS_*`` variables).
 Results also go to ``chiprun_out/torch_port_profile<--tag>.json``.
 
-Selection kernels that several reads launch (the pruned block stage's) are
-grouped under the selection of the read profiled.  For the newest-first
-selection ('fused' with ``--sel-method chunked``) the script also counts,
-over an untraced interact at each frame, the (query, bank block) rows its
-running floor emptied and those that escalated.
+Selection kernels that several reads launch (the pruned block stage's, and
+the transposed merge, which the resident selection also launches for its
+bank segments) are grouped under the selection of the read profiled.  For
+the newest-first selection ('fused' with ``--sel-method chunked``) the
+script also counts, over an untraced interact at each frame, the (query,
+bank block) rows its running floor emptied and those that escalated; for
+the resident one ('fused' with ``--sel-method resident``) the compactions
+of its candidate buffers.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # the selection kernels, by the library that launched them: the default
 # and the newest-first selections share theirs, as the sort and the 'select'
-# read's do, so the read decides
+# read's do, and the resident selection merges its segments with the
+# default's topk_merge_t_kernel, so the read decides
 SELECTION_KERNELS = ("topk_prune_block_kernel", "topk_merge_t_kernel",
                      "topk_rows_block_kernel", "topk_rows_merge_kernel",
                      "topk_resident_kernel")
@@ -147,6 +151,31 @@ def floor_counts(torch, run) -> dict:
                 escalated_rows=int(esc.item()))
 
 
+def compaction_counts(torch, run) -> dict:
+    """The resident selection's calls, queries and compactions of its
+    candidate buffers over one ``run()``.  Wraps the read's selector for the
+    run only."""
+    from eva_vos_tpu_torch.kernels import memory_topk as M
+
+    comp = torch.zeros(1, dtype=torch.int32, device=torch.device("cuda"))
+    calls = [0, 0]
+    select = M.SELECTORS["resident"]
+
+    def counted(qk, mk, valid, top_k):
+        calls[0] += 1
+        calls[1] += qk.shape[0]
+        return select(qk, mk, valid, top_k, compactions=comp)
+
+    M.SELECTORS["resident"] = counted
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        M.SELECTORS["resident"] = select
+    return dict(calls=calls[0], queries=calls[1],
+                compactions=int(comp.item()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--strategy", default="auto",
@@ -206,12 +235,18 @@ def main(argv=None) -> int:
                "kernels": engine.config.kernels._asdict(),
                "selection": selection, "untraced_interact0_ms": untraced_ms}
     print(f"[read] {strategy} {engine.config.kernels}: {selection}")
+    runs = {"0": lambda: engine.interact(state0, feats, m0, 0),
+            "30": lambda: engine.interact(out, feats, m30, 30)}
     if selection == "memory_topk_chunked":
-        runs = {"floor0": lambda: engine.interact(state0, feats, m0, 0),
-                "floor30": lambda: engine.interact(out, feats, m30, 30)}
         for key, run in runs.items():
-            results[key] = floor_counts(torch, run)
-            print(f"[{key}] newest-first selection rows: {results[key]}")
+            results[f"floor{key}"] = floor_counts(torch, run)
+            print(f"[floor{key}] newest-first selection rows: "
+                  f"{results[f'floor{key}']}")
+    if selection == "memory_topk_resident":
+        for key, run in runs.items():
+            results[f"compactions{key}"] = compaction_counts(torch, run)
+            print(f"[compactions{key}] resident selection: "
+                  f"{results[f'compactions{key}']}")
     results["interact0"] = trace(
         torch, lambda: engine.interact(state0, feats, m0, 0), selection)
     results["interact30"] = trace(

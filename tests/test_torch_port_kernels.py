@@ -31,7 +31,10 @@ from eva_vos_tpu_torch.kernels import (KernelConfig, build, fused_readout,
                                        topk_select_iter, topk_select_plain,
                                        topk_select_resident, topk_select_sort)
 from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
-                                                   SORT_CAPACITY, sort_keys,
+                                                   SORT_CAPACITY,
+                                                   resident_lists,
+                                                   resident_segments,
+                                                   sort_keys,
                                                    sort_prune_threshold)
 from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
 from eva_vos_tpu_torch.ops.memory_attention import (_scores,
@@ -96,10 +99,10 @@ VARIANTS = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("valid", [3000, 1700, 20])
 def test_selection_variant_kernels(cuda, variant, dtype, valid):
-    """The resident kernel sums in the plain version's order on these
-    shapes (ids equal); the pruned block stage (grid, chunked) sums |k|^2
-    and the products in another order, so its ids may differ only at
-    near-ties, as the default selection's."""
+    """The pruned block stage (grid, chunked) and the resident kernel sum
+    |k|^2 and the products in another order than the plain version (bf16
+    keys on the tensor cores), so their ids may differ only at near-ties,
+    as the default selection's."""
     fn, counted = VARIANTS[variant]
     g = torch.Generator(device=cuda).manual_seed(valid)
     qk = torch.randn((300, 64), generator=g, device=cuda).to(dtype)
@@ -110,12 +113,8 @@ def test_selection_variant_kernels(cuda, variant, dtype, valid):
     assert counted.launches == before + 1
     pv, pi = topk_select_plain(qk, mk, valid, 51)
     live = min(valid, 50)
-    if variant == "resident":
-        torch.testing.assert_close(vals[:live], pv[:live], rtol=0, atol=1e-4)
-        assert torch.equal(idx[:live], pi[:live])
-    else:
-        _assert_same_selection(vals[:live].T, idx[:live].T, pv[:live + 1].T,
-                               pi[:live + 1].T, 1e-4)
+    _assert_same_selection(vals[:live].T, idx[:live].T, pv[:live + 1].T,
+                           pi[:live + 1].T, 1e-4)
     assert torch.all(vals[live:] == -1e30)
     assert int(idx.min()) >= 0 and int(idx.max()) < valid
 
@@ -400,27 +399,87 @@ def test_select_topk_default_launches_iterative(cuda):
     torch.testing.assert_close(w, ws, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["dominant_tokens", "ties_past_capacity"])
-def test_resident_escalation(cuda, case):
-    """Winners packed into one slice of the bank, and more exact ties at the
-    threshold than a query's list holds: the second forces the escalation to
-    the full merge, and both stay exact."""
-    rng = np.random.default_rng(3)
+def _integer_bank(case: str, rng):
+    """(qk [64, 64], mk [3000, 64]) of small integers, exact in bf16, whose
+    scores are exact in fp32 in any summation order.  dominant_tokens:
+    winners packed into tokens 20..39; ties_past_capacity: ten keys 300
+    times each, more exact ties than a buffer holds; rising_scores: keys
+    c v with c rising along the bank and queries with q . v <= 0, so that
+    every key beats the keys walked (newest first) before it."""
     if case == "dominant_tokens":
-        mk = rng.standard_normal((3000, 64)).astype(np.float32)
-        mk[20:40] *= 30.0
-        qk = 30.0 * rng.standard_normal((64, 64)).astype(np.float32)
+        mk = rng.integers(-3, 4, (3000, 64))
+        mk[20:40] *= 30
+        qk = 30 * rng.integers(-3, 4, (64, 64))
+    elif case == "ties_past_capacity":
+        mk = np.tile(rng.integers(-4, 5, (10, 64)), (300, 1))
+        qk = rng.integers(-4, 5, (64, 64))
     else:
-        mk = np.tile(rng.standard_normal((10, 64)), (300, 1)).astype(np.float32)
-        qk = rng.standard_normal((64, 64)).astype(np.float32)
-    mk, qk = torch.from_numpy(mk).to(cuda), torch.from_numpy(qk).to(cuda)
-    esc = torch.zeros(1, dtype=torch.int32, device=cuda)
-    _, idx = topk_select_resident(qk, mk, 3000, 16, escalations=esc)
+        v = rng.choice([-1, 1], 64)
+        mk = (np.arange(3000) * 256 // 3000)[:, None] * v
+        qk = -v * rng.integers(0, 3, (64, 64))
+    return qk.astype(np.float32), mk.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dominant_tokens", "ties_past_capacity",
+                                  "rising_scores"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [16, 200])
+def test_resident_compactions(cuda, case, dtype, top_k):
+    """Winners packed into one slice of the bank, more exact ties than a
+    candidate buffer holds, and keys that rise in the walking order (a
+    compaction at every fill): the ids are the exact selection's, ties to
+    the lowest id, and the kernel's compactions are those of its plain
+    statement (resident_lists) over the same keys, in the kernel's segments
+    (two here).  The scores are exact in any order, so the kernel admits
+    the plain walk's keys at every step."""
+    qk, mk = _integer_bank(case, np.random.default_rng(3))
+    qk, mk = torch.from_numpy(qk), torch.from_numpy(mk)
+    comp = torch.zeros(1, dtype=torch.int32, device=cuda)
+    _, idx = topk_select_resident(qk.to(cuda, dtype), mk.to(cuda, dtype),
+                                  3000, top_k, compactions=comp)
     np.testing.assert_array_equal(idx.cpu().numpy(),
-                                  _oracle_topk(qk, mk, 3000, 16))
-    if case == "ties_past_capacity":
-        assert int(esc) > 0
+                                  _oracle_topk(qk, mk, 3000, top_k))
+    segments = resident_segments(
+        64, 3000, top_k,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    ids = torch.arange(3000).expand(64, -1)
+    _, want = resident_lists(sort_keys(_scores(mk, qk), ids, ids < 3000),
+                             3000, top_k, segments)
+    assert segments == 2 and int(comp) == want
+    if case == "rising_scores":
+        assert want >= 64 * 8  # every key admitted: a compaction a fill
+    elif case == "ties_past_capacity":
+        assert want > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [300, 8100])
+@pytest.mark.parametrize("valid", [5000, 3000, 100])
+@pytest.mark.parametrize("top_k", [1, 50, 128, 129, 256])
+def test_resident_kernel_top_k(cuda, dtype, n, valid, top_k):
+    """The resident kernel at top_k 1 to 256: 64-query tiles with 256-key
+    buffers up to 128, 32-query tiles with 512-key buffers above; 300
+    queries take one segment a live bank block (merged), 8,100 one segment
+    (the block stores [k, N]); fills of three blocks, one ending mid-step,
+    and fewer tokens than top_k."""
+    g = torch.Generator(device=cuda).manual_seed(valid + top_k)
+    qk = torch.randn((n, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((5000, 64), generator=g, device=cuda).to(dtype)
+    before = topk_select_resident.launches
+    comp = torch.zeros(1, dtype=torch.int32, device=cuda)
+    vals, idx = topk_select_resident(qk, mk, valid, top_k, compactions=comp)
+    torch.cuda.synchronize()
+    assert topk_select_resident.launches == before + 1
+    assert vals.shape == idx.shape == (top_k, n) and idx.dtype == torch.int32
+    pv, pi = topk_select_plain(qk, mk, valid, top_k + 1)
+    live = min(valid, top_k)
+    _assert_same_selection(vals[:live].T, idx[:live].T, pv[:live + 1].T,
+                           pi[:live + 1].T, 1e-4)
+    assert torch.all(vals[live:] == -1e30) and torch.all(idx[live:] == 0)
+    assert int(idx.min()) >= 0 and int(idx.max()) < valid
+    assert 0 <= int(comp) <= n * -(-valid // 128)
 
 
 def test_build_raises_without_nvcc():
