@@ -33,8 +33,12 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    and, on the 72-slot clustered bank at N = 8100, the sort kernel at
    top_k = 256, where each row keeps more candidates than the kernel ranks
    one by one;
-4. the two readout kernels against their plain version (K = 1 and 2,
-   CV = 512) on the oldest-first selections of phase 3;
+4. the two readout kernels against their plain version, ``F.embedding_bag``
+   and their bound on the oldest-first selection of every case of phase 3
+   (K = 1, CV = 512; K = 2 too on the 72-slot banks at N = 8100), with each
+   case's distinct rows and picks per 64-query tile; each must agree bit
+   for bit with a second run, the chunked one (the readout stage) with its
+   ``no_skip`` too, and it must count as many staged rows as the plan;
 5. the selection entry point ``select_topk`` at N = 8100 on a 72-slot
    clustered bank, with no method and with method="sort": the launch
    counters, zeroed just before each call, must show the iterative and the
@@ -52,7 +56,8 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    interleaved too.  The launch counters, zeroed just before each
    ``interact`` and read just after, must show each read's kernels launched,
    the outputs be finite, and one blocked segmentation step through the
-   kernels must match the plain read;
+   kernels must match the plain read; one more frame-0 interact of the
+   chunked read counts the rows its readout staged against the picks;
 7. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
    times and bound.
@@ -199,6 +204,28 @@ def split_ms(torch, fn, name: str, merged: bool = True, reps: int = 5,
                     "merge_ms": sum(us[merge]) / reps / 1e3}
     fail(f"the profiler's trace of {name}: "
          f"{ {k: len(v) for k, v in us.items()} } launches, not {want}")
+
+
+def device_ms(torch, fn, reps: int = 10, tries: int = 3) -> float:
+    """Mean device time of ``fn``'s kernels a call over ``reps`` calls, from
+    a ``torch.profiler`` trace (taken again, up to ``tries`` times, when a
+    call's kernel is missing): the kernel's own time, without the host's
+    launch path that CUDA events around a short call also measure."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        if len(us) >= reps:
+            return sum(us) / reps / 1e3
+    fail(f"the profiler's trace holds {len(us)} kernels for {reps} calls")
 
 
 def hmma_count(build, name: str):
@@ -356,10 +383,147 @@ def readout_bound(idx, k_obj: int):
     return bound_ms(n_bytes, 2.0 * k_obj * n * TOP_K * CV), rows
 
 
+def tile_rows(torch, vals, idx, queries: int):
+    """(distinct ids of weight > 0 summed over the tiles of ``queries``
+    queries, picks of weight > 0): the rows the readout stage copies for
+    one object, and the picks it sums."""
+    n = idx.shape[1]
+    tile = (torch.arange(n, device=idx.device) // queries).expand_as(idx)
+    live = torch.exp(vals - vals[:1]) > 0
+    keys = (tile[live].long() << 32) | idx[live].long()
+    return keys.unique().numel(), int(live.sum())
+
+
+def readout_cases(torch, mv2, sels, stage: bool) -> list:
+    """The two readout kernels on the default selection of every case of
+    the selection phase (``sels``: (case, N) -> (vals, idx)), K = 1, and
+    K = 2 at the fullest bank with N = N_QUERIES: each checked against the
+    plain version and timed beside it, ``F.embedding_bag`` (K = 1) and the
+    bound, with the distinct rows and picks per 64-query tile.  ``stage``:
+    the package's chunked readout runs the readout stage, so it must also
+    agree bit for bit with a second run and with its ``no_skip``, and count
+    the rows that ``tile_rows`` counts at the stage's tile size (the
+    default readout, a gather, with a second run).  The chunked readout's
+    ``no_skip`` is timed at the fullest clustered bank.  A kernel's ``ms`` and the library's are device
+    times (``device_ms``); ``call_ms`` and the plain version's are CUDA
+    events around a call."""
+    from eva_vos_tpu_torch.kernels import (topk_readout, topk_readout_chunked,
+                                           topk_readout_plain)
+    from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
+
+    readouts = (("memory_readout", topk_readout),
+                ("memory_readout_chunked", topk_readout_chunked))
+    staged = torch.zeros(1, dtype=torch.int32, device=mv2.device)
+    rows_out = []
+    for (case, n), (vals, idx) in sels.items():
+        full = case.startswith(f"fill{max(FILLS)}_") and n == N_QUERIES
+        for k_obj in ((1, 2) if full else (1,)):
+            mv = mv2[:k_obj].contiguous()
+            ref = topk_readout_plain(mv, vals, idx)
+            plain_ms = cuda_ms(torch, lambda: topk_readout_plain(mv, vals, idx),
+                               3)
+            lib_ms = None
+            if k_obj == 1:
+                # one library call for the same weighted gather
+                w = softmax_weights(vals.T).to(mv.dtype).contiguous()
+                ids = idx.T.long().contiguous()
+                lib_ms = device_ms(torch, lambda: torch.nn.functional
+                                   .embedding_bag(ids, mv[0], mode="sum",
+                                                  per_sample_weights=w))
+            (bound, by), rows = readout_bound(idx, k_obj)
+            tile64, picks = tile_rows(torch, vals, idx, 64)
+            tiles = -(-n // 64)
+            row = dict(case=f"{case}_K{k_obj}", n=n, k_obj=k_obj,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                       bound_by=by, unique_rows=rows,
+                       tile64_rows=tile64 / tiles, tile64_picks=picks / tiles)
+            note = ""
+            if stage:
+                from eva_vos_tpu_torch.kernels.memory_readout import (
+                    _sm_count, readout_geometry)
+                queries, slices = readout_geometry(
+                    n, k_obj, CV, mv.element_size(), TOP_K,
+                    _sm_count(mv.device))
+                want = k_obj * tile_rows(torch, vals, idx, queries)[0]
+                row.update(queries=queries, slices=slices, staged_rows=want,
+                           sharing=k_obj * picks / want)
+                note = (f", chunked: tiles of {queries} x {slices} slices, "
+                        f"staged rows {want} (picks / staged rows "
+                        f"{row['sharing']:.2f})")
+            for name, readout in readouts:
+                kw = {}
+                counted = stage and name == "memory_readout_chunked"
+                if counted:
+                    staged.zero_()
+                    kw["staged_rows"] = staged
+                out = readout(mv, vals, idx, **kw)
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           rtol=READOUT_RTOL,
+                                           atol=READOUT_ATOL)
+                if stage:
+                    if counted and int(staged.item()) != row["staged_rows"]:
+                        fail(f"{name} {case} N={n} K={k_obj}: staged "
+                             f"{int(staged.item())} rows, not "
+                             f"{row['staged_rows']}")
+                    if not torch.equal(readout(mv, vals, idx), out):
+                        fail(f"{name} {case} N={n}: two runs differ")
+                row[f"{name}_err"] = (out.float() - ref.float()).abs().max(
+                    ).item()
+                row[f"{name}_ms"] = device_ms(
+                    torch, lambda: readout(mv, vals, idx))
+                row[f"{name}_call_ms"] = cuda_ms(
+                    torch, lambda: readout(mv, vals, idx), 10)
+            # out: the chunked readout's, the loop's last
+            if stage and not torch.equal(
+                    topk_readout_chunked(mv, vals, idx, no_skip=True), out):
+                fail(f"memory_readout_chunked {case} N={n} K={k_obj}: "
+                     f"no_skip differs")
+            if full and k_obj == 1 and case.endswith("clustered"):
+                row["memory_readout_chunked_no_skip_ms"] = device_ms(
+                    torch, lambda: topk_readout_chunked(mv, vals, idx,
+                                                        no_skip=True))
+                note += (f", chunked no_skip "
+                         f"{row['memory_readout_chunked_no_skip_ms']:.4f} ms")
+            rows_out.append(row)
+            lib = "None" if lib_ms is None else f"{lib_ms:.3f}"
+            print(f"[readout] {case} N={n} K={k_obj}: memory_readout "
+                  f"{row['memory_readout_ms']:.4f} ms on the device, "
+                  f"{row['memory_readout_call_ms']:.3f} ms a call (max|d| "
+                  f"{row['memory_readout_err']:.3g}), memory_readout_chunked "
+                  f"{row['memory_readout_chunked_ms']:.4f} / "
+                  f"{row['memory_readout_chunked_call_ms']:.3f} ms (max|d| "
+                  f"{row['memory_readout_chunked_err']:.3g}), plain "
+                  f"{plain_ms:.3f} ms, embedding_bag {lib} ms, bound "
+                  f"{bound:.4f} ms ({by}), unique rows {rows}, per 64-query "
+                  f"tile {row['tile64_rows']:.1f} distinct rows of "
+                  f"{row['tile64_picks']:.1f} picks{note}", flush=True)
+    return rows_out
+
+
+def readout_inputs(torch):
+    """The readout phase's inputs as ``kernel_phases`` makes them (the same
+    seed and order): the values [2, 72 slots, CV] and the package's default
+    selection (``topk_select``) of every case, (case, N) -> (vals, idx)."""
+    from eva_vos_tpu_torch.kernels import topk_select
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qk = torch.randn((N_QUERIES, CK), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mv2 = torch.randn((2, max(FILLS) * HW_TOKENS, CV), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    sels = {}
+    for clustered in (False, True):
+        for fill in FILLS:
+            mk, valid = make_bank(torch, gen, qk, fill, clustered)
+            case = f"fill{fill}_{'clustered' if clustered else 'random'}"
+            for n in (N_QUERIES, HW_TOKENS):
+                sels[(case, n)] = topk_select(qk[:n], mk, valid, TOP_K)
+    return mv2, sels
+
+
 def kernel_phases(torch, results):
-    from eva_vos_tpu_torch.kernels import (select_topk, topk_readout,
-                                           topk_readout_chunked,
-                                           topk_readout_plain, topk_select,
+    from eva_vos_tpu_torch.kernels import (select_topk, topk_select,
                                            topk_select_chunked,
                                            topk_select_grid, topk_select_plain,
                                            topk_select_resident,
@@ -379,7 +543,7 @@ def kernel_phases(torch, results):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     esc = torch.zeros(1, dtype=torch.int32, device=dev)
     floored = torch.zeros(1, dtype=torch.int32, device=dev)
-    sel_rows, ro_rows = [], []
+    sel_rows, sels = [], {}
 
     def topk_counted(q, mk, valid, top_k):
         return topk_select(q, mk, valid, top_k, escalations=esc)
@@ -510,48 +674,15 @@ def kernel_phases(torch, results):
                           f"{lib_ms:.3f} ms (fp32 {lib['fp32']:.3f}, tf32 "
                           f"{lib['tf32']:.3f}), topk_only {topk_only_ms:.3f} "
                           f"ms, bound {bound:.4f} ms ({by}){note}", flush=True)
-                    if name == "memory_topk" and n == N_QUERIES:
-                        sel = (vals, idx)
+                    if name == "memory_topk":
+                        sels[(case, n)] = (vals, idx)
                 if clustered and fill == max(FILLS) and n == N_QUERIES:
                     results["sort_wide"] = sort_wide_case(torch, q, mk, valid,
                                                           esc)
 
-            vals, idx = sel
-            for k_obj in (1, 2):
-                mv = mv2[:k_obj].contiguous()
-                ref = topk_readout_plain(mv, vals, idx)
-                plain_ms = cuda_ms(
-                    torch, lambda: topk_readout_plain(mv, vals, idx), 3)
-                lib_ms = None
-                if k_obj == 1:
-                    # one library call for the same weighted gather
-                    w = softmax_weights(vals.T).to(mv.dtype).contiguous()
-                    ids = idx.T.long().contiguous()
-                    lib_ms = cuda_ms(torch, lambda: torch.nn.functional
-                                     .embedding_bag(ids, mv[0], mode="sum",
-                                                    per_sample_weights=w), 10)
-                (bound, by), rows = readout_bound(idx, k_obj)
-                for name, readout in (("memory_readout", topk_readout),
-                                      ("memory_readout_chunked",
-                                       topk_readout_chunked)):
-                    out = readout(mv, vals, idx)
-                    torch.testing.assert_close(out.float(), ref.float(),
-                                               rtol=READOUT_RTOL,
-                                               atol=READOUT_ATOL)
-                    rerr = (out.float() - ref.float()).abs().max().item()
-                    ms = cuda_ms(torch, lambda: readout(mv, vals, idx), 10)
-                    ro_rows.append(dict(kernel=name, case=f"{case}_K{k_obj}",
-                                        max_abs_err=rerr, ms=ms,
-                                        plain_ms=plain_ms, library_ms=lib_ms,
-                                        bound_ms=bound, bound_by=by,
-                                        unique_rows=rows))
-                    print(f"[readout] {name} {case} K={k_obj}: max|d|="
-                          f"{rerr:.3g} kernel {ms:.3f} ms, plain "
-                          f"{plain_ms:.3f} ms, library "
-                          f"{lib_ms if lib_ms is None else round(lib_ms, 3)} "
-                          f"ms, bound {bound:.4f} ms ({by})", flush=True)
             del mk
-    results["selection"], results["readout"] = sel_rows, ro_rows
+    results["selection"] = sel_rows
+    results["readout"] = readout_cases(torch, mv2, sels, stage=True)
 
 
 def entry_phase(torch, results):
@@ -630,6 +761,35 @@ def launch_counters():
             "memory_readout_chunked": K.topk_readout_chunked}
 
 
+def staged_counts(torch, run):
+    """The chunked readout's staged rows and the picks it summed (top_k x N
+    x K a call) over one ``run()``, through the fused read's READOUTS (a
+    package without that table gives None)."""
+    from eva_vos_tpu_torch.kernels import memory_readout as R
+
+    if not hasattr(R, "READOUTS"):
+        return None
+    staged = torch.zeros(1, dtype=torch.int32, device=torch.device(DEVICE))
+    counts = dict(calls=0, picks=0)
+    saved = dict(R.READOUTS)
+
+    def counted(readout):
+        def call(mv, vals, idx, **kw):
+            counts["calls"] += 1
+            counts["picks"] += mv.shape[0] * vals.numel()
+            return readout(mv, vals, idx, staged_rows=staged, **kw)
+        return call
+
+    R.READOUTS["chunked"] = counted(saved["chunked"])
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        R.READOUTS.update(saved)
+    counts["staged_rows"] = int(staged.item())
+    return counts
+
+
 def engine_phase(torch, results, card):
     import numpy as np
 
@@ -697,6 +857,21 @@ def engine_phase(torch, results, card):
             states[path], seconds = interact(path, out0[path], m30, 30)
             walls30[path].append(seconds)
 
+    staged = {}   # one more frame-0 interact of the chunked read, counted
+    for path, (_, kernels) in reads.items():
+        if "memory_readout_chunked" in kernels:
+            staged[path] = staged_counts(torch, lambda: engines[path].interact(
+                state0, feats, m0, 0))
+            if staged[path] is not None:
+                c = staged[path]
+                if c["staged_rows"] <= 0:
+                    fail(f"{path}: its readout staged no row")
+                print(f"[engine {path}] readout at frame 0: {c['calls']} "
+                      f"calls, {c['staged_rows']} rows staged for "
+                      f"{c['picks']} picks "
+                      f"({c['picks'] / max(1, c['staged_rows']):.2f} picks a "
+                      f"staged row)", flush=True)
+
     launches, paths = {}, {}
     for path, (_, kernels) in reads.items():
         engine, state = engines[path], states[path]
@@ -751,6 +926,7 @@ def engine_phase(torch, results, card):
             interact0_s=walls[path], interact30_s=fused_s,
             interact30_all_s=walls30[path],
             launches_per_interact=per_interact[path], launches=counts[path],
+            readout_staged0=staged.get(path),
             step_max_abs_dp=diff.max().item(), step_share_off=frac,
             foreground_share=float(np.mean(ids > 0)))
     results["engine"] = dict(precompute_s=precompute_s, paths=paths)
@@ -765,15 +941,18 @@ def kernels_line(results, launches):
     engine read runs)."""
 
     def row(name, rows):
-        mine = [r for r in rows if r["kernel"] == name]
+        readout = "topk" not in name
+        mine = [r for r in rows if readout or r["kernel"] == name]
         head = next(r for r in mine if r["case"] in (
             f"fill{max(FILLS)}_clustered", f"fill{max(FILLS)}_clustered_K1")
             and r.get("n", N_QUERIES) == N_QUERIES)
+        key = f"{name}_" if readout else ""
         return {"name": name, "route": "cuda",
                 "source": f"eva_vos_tpu_torch/kernels/csrc/{SOURCES[name]}",
                 "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": max(r["max_abs_err"] for r in mine),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "max_abs_err": max(r[f"{key}err" if readout else "max_abs_err"]
+                                   for r in mine),
+                "ms": head[f"{key}ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"]}
 

@@ -1,4 +1,5 @@
-// Top-k weighted value readout for the STCN memory read (sm_90a).
+// Top-k weighted value readout for the STCN memory read, the default fused
+// read's (sm_90a).
 //
 // Replaces eva_vos_tpu/kernels/memory_readout.py:_scatter_readout_kernel,
 // reached through pallas_fused_readout.  Given the selection's raw scores
@@ -16,10 +17,19 @@
 // select neighbouring tokens, find those rows in L2.
 //
 // Design: one block per (tile of 16 queries, object).  The block stages the
-// tile's weights and ids in shared memory once, then each 64-thread group
-// walks one query at a time: its threads cover CV in 16-byte vectors (8 bf16
-// or 4 fp32), so every selected row is one coalesced 1 KB read in bf16.  The
-// loop over t is unrolled so that several row loads are in flight.
+// tile's weights and ids in shared memory once, read coalesced along the
+// queries, then each 64-thread group walks one query at a time: its threads
+// cover CV in 16-byte vectors (8 bf16 or 4 fp32), so every selected row is
+// one coalesced 1 KB read in bf16.  The loop over t is unrolled so that
+// several row loads are in flight.
+//
+// The chunked readout's stage (readout_common.cuh), which moves each
+// distinct row once per query tile, took longer than this gather over the
+// engine's frame-0 interact (0.96 against 0.76 device ms on an H100 80GB
+// HBM3 at 700 W; PERF.md):
+// at the engine's sharing (1.6 picks a distinct row of a 64-query tile) its
+// sums do the gather's arithmetic and its plan and staging come on top.  So
+// the default read keeps this kernel.
 
 #include "readout_common.cuh"
 
@@ -42,17 +52,19 @@ readout_kernel(const T* __restrict__ mv, const float* __restrict__ vals,
 
   const int o = blockIdx.y;
   const int q0 = blockIdx.x * kQueriesPerBlock;
+  // neighbouring threads read neighbouring queries of one slot t
   for (int e = threadIdx.x; e < kQueriesPerBlock * top_k; e += kThreads) {
-    const int qq = e / top_k;
-    const int t = e - qq * top_k;
+    const int t = e / kQueriesPerBlock;
+    const int qq = e - t * kQueriesPerBlock;
     const int q = q0 + qq;
+    float wt = 0.f;
+    int id = 0;
     if (q < n) {
-      w[e] = expf(vals[static_cast<size_t>(t) * n + q] - vals[q]);
-      ids[e] = idx[static_cast<size_t>(t) * n + q];
-    } else {
-      w[e] = 0.f;
-      ids[e] = 0;
+      wt = expf(vals[static_cast<size_t>(t) * n + q] - vals[q]);
+      id = idx[static_cast<size_t>(t) * n + q];
     }
+    w[qq * top_k + t] = wt;
+    ids[qq * top_k + t] = id;
   }
   __syncthreads();
   if (threadIdx.x < kQueriesPerBlock) {

@@ -4,11 +4,18 @@ kernel.
 
 Counterpart of ``eva_vos_tpu/kernels/memory_readout.py:pallas_fused_readout``
 and its two Pallas kernels: ``_scatter_readout_kernel`` (kernel
-``csrc/memory_readout.cu``, wrapper :func:`topk_readout`) and
-``_scatter_readout_kernel_chunked`` (kernel ``csrc/memory_readout_chunked.cu``,
-wrapper :func:`topk_readout_chunked`).  Each source note says what bounds
-its kernel and how its design answers that.  The JAX wrapper's padding and
-VMEM geometry search have no counterpart: the CUDA kernels take any N and M.
+``csrc/memory_readout.cu``, a weighted gather, wrapper :func:`topk_readout`)
+and ``_scatter_readout_kernel_chunked`` (kernel
+``csrc/memory_readout_chunked.cu`` on the device stage of
+``csrc/readout_common.cuh``, wrapper :func:`topk_readout_chunked`).  Each
+source note says what bounds its kernel and how its design answers that.
+The stage copies each distinct selected row once per tile of queries, in
+ascending id order, chunk by chunk of the bank: :func:`readout_stage_plain`
+states that plan in plain PyTorch (with :func:`readout_picks`,
+:func:`readout_chunks` and :func:`readout_staged_rows`), and
+:func:`readout_geometry` the tiles and CV slices it is launched with.  The
+JAX wrapper's padding and VMEM geometry search have no counterpart: the
+CUDA kernels take any N and M.
 """
 
 from __future__ import annotations
@@ -21,14 +28,108 @@ import torch
 from ..ops.memory_attention import softmax_weights, weighted_gather
 from . import build
 from .config import KernelConfig
-from .memory_topk import (_DTYPES, SELECTORS, _I, _P, _bind, _check_operand,
-                          _stream, topk_select_plain)
+from .memory_topk import (_DTYPES, SELECTORS, _I, _P, _bind, _check_counter,
+                          _check_operand, _ptr, _sm_count, _stream,
+                          topk_select_plain)
 
 
 def topk_readout_plain(mv, vals, idx):
     """Plain PyTorch readout: mv [K, M, CV], vals/idx [top_k, N] ->
     [K, N, CV] in mv.dtype, with w = exp(v - v_0) / sum in fp32."""
     return weighted_gather(mv, softmax_weights(vals.T), idx.T)
+
+
+READOUT_CHUNK = 1024  # readout_common.cuh's kChunk: bank ids a chunk
+_NO_ID = 2 ** 31 - 1  # its kNoId: the id of a pick of weight 0
+_MAX_SLICE_VECS = 64  # 16-byte columns a slice holds (kMaxCols * 32)
+
+
+def readout_geometry(n: int, n_obj: int, cv: int, itemsize: int, top_k: int,
+                     sms: int = 132) -> tuple:
+    """(queries a tile, CV slices) of the readout stage: 64-query tiles
+    while top_k <= 64 and the tiles of all objects fill half the ``sms``,
+    else 32; then as many CV slices as the blocks leave SMs for, down to
+    16 columns of 16 bytes a slice, and at least enough that a slice holds
+    at most 64 of them (1 KB).  N = 8,100, K = 1, top_k = 50, CV = 512 bf16
+    gives (64, 1): 127 blocks; N = 1,620 gives (32, 2): 102 blocks."""
+    vecs = cv * itemsize // 16
+    queries = 64 if top_k <= 64 and -(-n // 64) * n_obj >= sms // 2 else 32
+    blocks = -(-n // queries) * n_obj
+    slices = max(-(-vecs // _MAX_SLICE_VECS),
+                 min(max(1, sms // blocks), max(1, vecs // 16)))
+    return queries, slices
+
+
+def readout_picks(vals, idx):
+    """Each query's picks in the stage's order: (ids [top_k, N] int64 and
+    weights exp(v - v_0) [top_k, N] fp32, both sorted by (id, slot t) along
+    the picks; a pick of weight 0 has no row (id _NO_ID) and sorts last),
+    and the sums of the weights [N]."""
+    w = torch.exp(vals - vals[:1])
+    ids = torch.where(w > 0, idx.long(), torch.full_like(idx, _NO_ID,
+                                                         dtype=torch.int64))
+    slot = torch.arange(vals.shape[0], device=vals.device)[:, None]
+    order = (ids * 256 + slot).argsort(0)
+    sw = w.gather(0, order)
+    return ids.gather(0, order), sw, sw.sum(0)
+
+
+def readout_chunks(rows: torch.Tensor, m: int, no_skip: bool) -> list:
+    """The chunks a tile walks, in order: those of READOUT_CHUNK ids that
+    hold one of its ascending distinct ``rows`` (an empty chunk costs
+    nothing), or with ``no_skip`` every chunk of the bank [0, m)."""
+    if no_skip:
+        return list(range(-(-m // READOUT_CHUNK)))
+    return (rows // READOUT_CHUNK).unique().tolist()
+
+
+def readout_staged_rows(vals, idx, n_obj: int, queries: int) -> int:
+    """Rows the stage copies: each distinct id of weight > 0 once per tile
+    of ``queries`` queries and object."""
+    tile = (torch.arange(vals.shape[1], device=vals.device) // queries
+            ).expand_as(idx)
+    live = torch.exp(vals - vals[:1]) > 0
+    return n_obj * ((tile[live].long() << 32) | idx[live].long()
+                    ).unique().numel()
+
+
+def readout_stage_plain(mv, vals, idx, queries: int = 64,
+                        no_skip: bool = False):
+    """Plain statement of the readout stage (``csrc/readout_common.cuh``)
+    -> (out [K, N, CV] in mv.dtype, rows staged, chunks walked).
+
+    Per tile of ``queries`` queries (and object): its distinct ids of
+    weight > 0, ascending, are the rows staged, one copy each; the tile
+    walks the chunks of :func:`readout_chunks`, and in each chunk every
+    query adds w * row over its hits there, in :func:`readout_picks`'s
+    (id, slot) order, to an fp32 sum.  So every query sums its rows in
+    ascending id order, with or without the skip; at the end the sum is
+    divided by the query's sum of weights."""
+    n_obj, m, cv = mv.shape
+    top_k, n = vals.shape
+    sid, sw, z = readout_picks(vals, idx)
+    out = torch.empty((n_obj, n, cv), dtype=torch.float32, device=mv.device)
+    staged = walked = 0
+    for q0 in range(0, n, queries):
+        tid, tw = sid[:, q0:q0 + queries], sw[:, q0:q0 + queries]
+        cols = torch.arange(tid.shape[1], device=mv.device)
+        rows = tid[tid != _NO_ID].unique()
+        staged += n_obj * rows.numel()
+        acc = torch.zeros((n_obj, tid.shape[1], cv), device=mv.device)
+        ptr = torch.zeros(tid.shape[1], dtype=torch.int64, device=mv.device)
+        for c in readout_chunks(rows, m, no_skip):
+            walked += 1
+            while True:  # each query's next hit in the chunk, if any
+                at = ptr.clamp(max=top_k - 1)
+                cur = tid[at, cols]
+                take = (ptr < top_k) & (cur < (c + 1) * READOUT_CHUNK)
+                if not take.any():
+                    break
+                q = cols[take]
+                acc[:, q] += tw[at[q], q][None, :, None] * mv[:, cur[q]].float()
+                ptr[q] += 1
+        out[:, q0:q0 + queries] = acc / z[q0:q0 + queries][None, :, None]
+    return out.to(mv.dtype), staged, walked
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,7 +141,7 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _chunked_lib() -> ctypes.CDLL:
     return _bind("memory_readout_chunked", "memory_readout_chunked_launch",
-                 [_P] * 4 + [_I] * 7 + [_P])
+                 [_P] * 4 + [_I] * 9 + [_P, _P])
 
 
 def _check_readout(mv, vals, idx):
@@ -53,12 +154,14 @@ def _check_readout(mv, vals, idx):
             or idx.device != mv.device):
         raise ValueError("vals/idx must be contiguous [top_k, N] fp32/int32 "
                          "on mv's device")
+    if not 1 <= vals.shape[0] <= 256:
+        raise ValueError(f"top_k={vals.shape[0]} must be in [1, 256]")
 
 
 def topk_readout(mv: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor):
     """Readout, one value row per (query, slot); CPU tensors take the plain
     version (topk_readout_plain), CUDA tensors the kernel (which raises on
-    any launch error).  Every id must be < M."""
+    any launch error).  Every id must be < M and top_k in [1, 256]."""
     if mv.device.type == "cpu":
         return topk_readout_plain(mv, vals, idx)
     _check_readout(mv, vals, idx)
@@ -75,31 +178,39 @@ def topk_readout(mv: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor):
 
 
 def topk_readout_chunked(mv: torch.Tensor, vals: torch.Tensor,
-                         idx: torch.Tensor, no_skip: bool = False):
-    """Readout that walks the value bank in 1,024-token chunks, skipping
-    those no selected id lands in (``no_skip`` visits every one), and reads
-    each hit row once per 16-query tile.  The same contract and plain
-    version (topk_readout_plain) as :func:`topk_readout`."""
+                         idx: torch.Tensor, no_skip: bool = False,
+                         staged_rows: torch.Tensor | None = None):
+    """Readout through the stage of ``csrc/readout_common.cuh``
+    (:func:`readout_stage_plain` states it): each tile of queries stages
+    each distinct row once, walking the value bank in 1,024-token chunks
+    and skipping those no selected id lands in (``no_skip`` visits every
+    one, the same output bit for bit).  The contract and plain version of
+    :func:`topk_readout`.  ``staged_rows``, a CUDA int32 tensor of one
+    element, gains the rows the kernel staged (:func:`readout_staged_rows`
+    counts them)."""
     if mv.device.type == "cpu":
         return topk_readout_plain(mv, vals, idx)
     _check_readout(mv, vals, idx)
+    _check_counter(staged_rows, mv, "staged_rows")
     n_obj, m, cv = mv.shape
     top_k, n = vals.shape
-    if cv * mv.element_size() > 2048:
-        raise ValueError(f"value width {cv} exceeds the chunked readout's "
-                         f"2 KB rows (1024 bf16 or 512 fp32 channels)")
+    queries, slices = readout_geometry(n, n_obj, cv, mv.element_size(), top_k,
+                                       _sm_count(mv.device))
     out = torch.empty((n_obj, n, cv), dtype=mv.dtype, device=mv.device)
     lib = _chunked_lib()
     status = lib.memory_readout_chunked_launch(
         mv.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        n_obj, n, m, cv, top_k, int(bool(no_skip)), _DTYPES[mv.dtype],
-        _stream(mv))
+        n_obj, n, m, cv, top_k, queries, slices, int(bool(no_skip)),
+        _DTYPES[mv.dtype], _stream(mv), _ptr(staged_rows))
     build.check("memory_readout_chunked", lib, status)
     topk_readout_chunked.launches += 1
     return out
 
 
 topk_readout.launches = topk_readout_chunked.launches = 0
+
+# the readout kernels by the JAX package's method names
+READOUTS = {"grid": topk_readout, "chunked": topk_readout_chunked}
 
 
 def fused_readout_plain(mk, qk, mv, top_k: int, valid_tokens=None):
@@ -121,6 +232,5 @@ def fused_readout(mk, qk, mv, top_k: int, valid_tokens=None,
     sel, readout, sel_notau, readout_noskip = (kcfg or KernelConfig()).methods()
     kw = {"no_skip": sel_notau} if sel == "chunked" else {}
     vals, idx = SELECTORS[sel](qk, mk, valid_tokens, top_k, **kw)
-    if readout == "chunked":
-        return topk_readout_chunked(mv, vals, idx, no_skip=readout_noskip)
-    return topk_readout(mv, vals, idx)
+    kw = {"no_skip": readout_noskip} if readout == "chunked" else {}
+    return READOUTS[readout](mv, vals, idx, **kw)

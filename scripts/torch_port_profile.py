@@ -18,7 +18,8 @@ Results also go to ``chiprun_out/torch_port_profile<--tag>.json``.
 
 Selection kernels that several reads launch (the pruned block stage's, and
 the transposed merge, which the resident selection also launches for its
-bank segments) are grouped under the selection of the read profiled.  For
+bank segments) are grouped under the selection of the read profiled, and
+the readout kernels under the read's readout.  For
 the newest-first selection ('fused' with ``--sel-method chunked``) the
 script also counts, over an untraced interact at each frame, the (query,
 bank block) rows its running floor emptied and those that escalated; for
@@ -48,9 +49,10 @@ SELECTION_KERNELS = ("topk_prune_block_kernel", "topk_merge_t_kernel",
 # the selection of each 'fused' read's sel_method ('select' reads by grid)
 SELECTIONS = {"tournament": "memory_topk", "chunked": "memory_topk_chunked",
               "resident": "memory_topk_resident"}
+# the readout kernels (the chunked readout's stage and the default gather),
+# grouped under the readout of the read profiled
+READOUT_KERNELS = ("readout_stage_kernel", "readout_kernel")
 GROUPS = (  # first match wins; lower-case substrings of kernel names
-    ("memory_readout kernel", ("readout_kernel",)),
-    ("memory_readout_chunked kernel", ("readout_chunked_kernel",)),
     ("convolution / matmul", ("conv", "xmma", "cudnn", "gemm", "sm90", "sm80",
                               "implicit", "cutlass", "wgrad", "dgrad")),
     ("sort / topk (plain ops)", ("sort", "topk", "radix")),
@@ -62,11 +64,14 @@ GROUPS = (  # first match wins; lower-case substrings of kernel names
 )
 
 
-def group_of(name: str, selection: str) -> str:
-    """The group of a kernel's time; ``selection`` names the read's."""
+def group_of(name: str, selection: str, readout: str) -> str:
+    """The group of a kernel's time; ``selection`` and ``readout`` name the
+    read's."""
     low = name.lower()
     if any(k in low for k in SELECTION_KERNELS):
         return f"{selection} kernels"
+    if any(k in low for k in READOUT_KERNELS):
+        return f"{readout} kernel"
     for group, keys in GROUPS:
         if any(k in low for k in keys):
             return group
@@ -85,7 +90,7 @@ def busy_us(intervals) -> float:
     return total
 
 
-def trace(torch, fn, selection: str) -> dict:
+def trace(torch, fn, selection: str, readout: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,7 +114,7 @@ def trace(torch, fn, selection: str) -> dict:
         raise RuntimeError("the profiler recorded no device activity")
     by_group = defaultdict(float)
     for name, (us, _) in by_kernel.items():
-        by_group[group_of(name, selection)] += us
+        by_group[group_of(name, selection, readout)] += us
     busy = busy_us(intervals)
     span = max(t for _, t in intervals) - min(s for s, _ in intervals)
     return dict(
@@ -231,6 +236,9 @@ def main(argv=None) -> int:
     strategy = engine.config.readout_strategy
     selection = ("memory_topk_grid" if strategy == "select" else
                  SELECTIONS[engine.config.kernels.methods()[0]])
+    readout = ("memory_readout_chunked"
+               if engine.config.kernels.methods()[1] == "chunked"
+               else "memory_readout")
     results = {"card": card, "strategy": strategy,
                "kernels": engine.config.kernels._asdict(),
                "selection": selection, "untraced_interact0_ms": untraced_ms}
@@ -248,9 +256,11 @@ def main(argv=None) -> int:
             print(f"[compactions{key}] resident selection: "
                   f"{results[f'compactions{key}']}")
     results["interact0"] = trace(
-        torch, lambda: engine.interact(state0, feats, m0, 0), selection)
+        torch, lambda: engine.interact(state0, feats, m0, 0), selection,
+        readout)
     results["interact30"] = trace(
-        torch, lambda: engine.interact(out, feats, m30, 30), selection)
+        torch, lambda: engine.interact(out, feats, m30, 30), selection,
+        readout)
     print(f"[untraced] interact at frame 0: {untraced_ms:.2f} ms "
           f"({59 / untraced_ms * 1e3:.1f} fps)")
     for key in ("interact0", "interact30"):

@@ -30,6 +30,8 @@ from eva_vos_tpu_torch.kernels import (KernelConfig, build, fused_readout,
                                        topk_select_chunked, topk_select_grid,
                                        topk_select_iter, topk_select_plain,
                                        topk_select_resident, topk_select_sort)
+from eva_vos_tpu_torch.kernels.memory_readout import (readout_geometry,
+                                                      readout_staged_rows)
 from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
                                                    SORT_CAPACITY,
                                                    resident_lists,
@@ -535,40 +537,117 @@ def test_topk_select_kernel_ties_to_lowest_id(cuda, dtype, valid, top_k):
                                   _oracle_topk(qk, mk, valid, top_k))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k_obj", [1, 2])
-def test_topk_readout_kernel(cuda, dtype, k_obj):
-    g = torch.Generator(device=cuda).manual_seed(k_obj)
-    qk = torch.randn((300, 64), generator=g, device=cuda).to(dtype)
-    mk = torch.randn((3000, 64), generator=g, device=cuda).to(dtype)
-    mv = torch.randn((k_obj, 3000, 512), generator=g, device=cuda).to(dtype)
-    vals, idx = topk_select(qk, mk, 2500, 50)
-    before = topk_readout.launches
-    out = topk_readout(mv, vals, idx)
-    torch.cuda.synchronize()
-    assert topk_readout.launches == before + 1
-    ref = topk_readout_plain(mv, vals, idx)
-    if dtype == torch.float32:
+def _readout_selection(kind: str, n: int, m: int, top_k: int, valid: int,
+                       device):
+    """(vals [top_k, N] descending raw scores, idx [top_k, N] int32) as a
+    selection gives them, from numpy: 'random' picks distinct ids over the
+    valid tokens; 'clustered' picks them from a 256-id pool that 16
+    neighbouring queries share (few distinct rows a tile); 'ties' gives
+    every pick the same score.  Slots past ``valid`` hold -1e30 and id 0."""
+    rng = np.random.default_rng(n + m + top_k)
+    live = min(valid, top_k)
+    idx = np.zeros((n, top_k), np.int64)
+    for q in range(n):
+        if kind == "clustered":
+            pool = ((q // 16) * 64 + np.arange(256)) % valid
+            idx[q, :live] = rng.choice(pool, live, replace=False)
+        else:
+            idx[q, :live] = rng.choice(valid, live, replace=False)
+    vals = np.full((n, top_k), -1e30, np.float32)
+    scores = (np.zeros((n, live)) if kind == "ties"
+              else -np.sort(-3 * rng.standard_normal((n, live)), axis=1))
+    vals[:, :live] = scores
+    return (torch.from_numpy(np.ascontiguousarray(vals.T)).to(device),
+            torch.from_numpy(np.ascontiguousarray(idx.T, np.int32)).to(device))
+
+
+# (kind, N, M, CV, top_k, valid, K, dtype): the cases of the plain plan's
+# CPU tests (tests/test_torch_port_readout.py) at card sizes: N = 1 and N
+# not a multiple of a tile; valid < top_k; top_k 1, 50 and 256; CV 8, 64,
+# 512 and 1,024 in bf16 and 512 in fp32; K = 1 and 2; 64-query tiles at
+# N = 8,100; ids over two bitmap windows (M > 131,072)
+READOUT_CASES = [
+    ("random", 300, 3000, 512, 50, 2500, 1, torch.bfloat16),
+    ("random", 300, 3000, 512, 50, 2500, 2, torch.float32),
+    ("clustered", 300, 3000, 512, 50, 2500, 2, torch.bfloat16),
+    ("clustered", 300, 3000, 512, 50, 2500, 1, torch.float32),
+    ("random", 1, 3000, 512, 50, 2500, 1, torch.bfloat16),
+    ("random", 130, 3000, 64, 50, 20, 1, torch.bfloat16),
+    ("ties", 100, 640, 64, 16, 640, 2, torch.float32),
+    ("random", 77, 512, 8, 1, 512, 1, torch.bfloat16),
+    ("clustered", 200, 5000, 1024, 256, 4000, 1, torch.bfloat16),
+    ("random", 200, 5000, 512, 256, 4000, 1, torch.float32),
+    ("random", 200, 5000, 1024, 100, 4000, 2, torch.bfloat16),
+    ("clustered", 8100, 20000, 512, 50, 19440, 1, torch.bfloat16),
+    ("random", 1000, 140000, 64, 50, 140000, 1, torch.bfloat16),
+]
+
+
+def _readout_case(case, device):
+    kind, n, m, cv, top_k, valid, k_obj, dtype = case
+    g = torch.Generator(device=device).manual_seed(n + cv)
+    mv = torch.randn((k_obj, m, cv), generator=g, device=device).to(dtype)
+    vals, idx = _readout_selection(kind, n, m, top_k, valid, device)
+    queries, _ = readout_geometry(n, k_obj, cv, mv.element_size(), top_k,
+                                  torch.cuda.get_device_properties(
+                                      device).multi_processor_count)
+    return mv, vals, idx, readout_staged_rows(vals, idx, k_obj, queries)
+
+
+def _assert_readout_close(out, ref):
+    if out.dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     else:
         torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
                                    atol=2e-2)
-    # and chained, against the plain chain (fewer valid tokens than top_k)
-    out = fused_readout(mk, qk, mv, 50, 20)
-    torch.testing.assert_close(out.float(),
-                               fused_readout_plain(mk, qk, mv, 50, 20).float(),
-                               rtol=2 ** -7, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", READOUT_CASES, ids=str)
+def test_topk_readout_kernel(cuda, case):
+    """The default read's readout (a weighted gather) against the plain
+    version; two runs equal bit for bit."""
+    mv, vals, idx, _ = _readout_case(case, cuda)
+    before = topk_readout.launches
+    out = topk_readout(mv, vals, idx)
+    torch.cuda.synchronize()
+    assert topk_readout.launches == before + 1
+    assert out.shape == (mv.shape[0], vals.shape[1], mv.shape[2])
+    _assert_readout_close(out, topk_readout_plain(mv, vals, idx))
+    assert torch.equal(topk_readout(mv, vals, idx), out)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("no_skip", [False, True])
+@pytest.mark.parametrize("case", READOUT_CASES, ids=str)
+def test_chunked_readout_kernel(cuda, case, no_skip):
+    """The chunked readout (the readout stage) against the plain version;
+    bit for bit equal to a second run and with the chunk skip turned the
+    other way; the rows staged as many as the plain plan stages
+    (readout_staged_rows)."""
+    mv, vals, idx, want_rows = _readout_case(case, cuda)
+    staged = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = topk_readout_chunked.launches
+    out = topk_readout_chunked(mv, vals, idx, no_skip=no_skip,
+                               staged_rows=staged)
+    torch.cuda.synchronize()
+    assert topk_readout_chunked.launches == before + 1
+    assert out.shape == (mv.shape[0], vals.shape[1], mv.shape[2])
+    _assert_readout_close(out, topk_readout_plain(mv, vals, idx))
+    assert int(staged) == want_rows
+    assert torch.equal(topk_readout_chunked(mv, vals, idx, no_skip=no_skip),
+                       out)
+    assert torch.equal(topk_readout_chunked(mv, vals, idx,
+                                            no_skip=not no_skip), out)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k_obj", [1, 2])
-def test_chunked_readout_kernel(cuda, no_skip, dtype, k_obj):
-    """Random selections put ~250 distinct rows of a tile in each 1,024-token
-    chunk (several staging rounds); the clustered bank of the second
-    selection puts a tile's ids in few chunks, so most are skipped."""
+def test_readout_kernels_on_selections(cuda, dtype, k_obj):
+    """Both readouts on the default selection kernel's output, random and
+    clustered banks, fewer valid tokens than top_k too, and chained by
+    fused_readout against the plain chain."""
     g = torch.Generator(device=cuda).manual_seed(k_obj)
     qk = torch.randn((300, 64), generator=g, device=cuda).to(dtype)
     mv = torch.randn((k_obj, 3000, 512), generator=g, device=cuda).to(dtype)
@@ -577,17 +656,14 @@ def test_chunked_readout_kernel(cuda, no_skip, dtype, k_obj):
                + 0.05 * torch.randn((3000, 64), generator=g, device=cuda
                                     ).to(dtype)):
         for valid in (2500, 20):
-            vals, idx = topk_select_plain(qk, mk.contiguous(), valid, 50)
-            before = topk_readout_chunked.launches
-            out = topk_readout_chunked(mv, vals, idx, no_skip=no_skip)
-            torch.cuda.synchronize()
-            assert topk_readout_chunked.launches == before + 1
+            vals, idx = topk_select(qk, mk.contiguous(), valid, 50)
             ref = topk_readout_plain(mv, vals, idx)
-            if dtype == torch.float32:
-                torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
-            else:
-                torch.testing.assert_close(out.float(), ref.float(),
-                                           rtol=2 ** -7, atol=2e-2)
+            _assert_readout_close(topk_readout(mv, vals, idx), ref)
+            _assert_readout_close(topk_readout_chunked(mv, vals, idx), ref)
+    out = fused_readout(mk, qk, mv, 50, 20)
+    torch.testing.assert_close(out.float(),
+                               fused_readout_plain(mk, qk, mv, 50, 20).float(),
+                               rtol=2 ** -7, atol=2e-2)
 
 
 @pytest.mark.cuda
