@@ -11,14 +11,16 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    libraries of the selections that score bf16 keys on the tensor cores
    (``cuobjdump``): the default and newest-first (``memory_topk``), the
    resident (``memory_topk_resident``), the 'select' read's
-   (``memory_topk_grid``) and the sort selection's;
+   (``memory_topk_grid``), the iterative (``memory_topk_iter``) and the
+   sort selection's;
 3. the six top-k selection kernels (oldest first, newest first with the
    running floor, resident (query tiles walking the bank newest first),
-   the 'select' read's, and through ``select_topk`` iterative extraction,
-   its default, and per-block sort) against their plain versions at the
-   engine's blocked-step shape (N = 5 x 1620 queries, CK = 64, top_k = 50,
-   bf16) on banks of 1, 12 and 72 slots of 1620 tokens, random and
-   clustered, and at a single-frame step (N = 1620).  The newest-first
+   the 'select' read's, and through ``select_topk`` its default, the
+   iterative one (the resident walk writing [N, k] rows), and per-block
+   sort) against their plain versions at the engine's blocked-step shape
+   (N = 5 x 1620 queries, CK = 64, top_k = 50, bf16) on banks of 1, 12 and
+   72 slots of 1620 tokens, random and clustered, and at a single-frame
+   step (N = 1620).  The newest-first
    selection is also checked and timed with ``no_skip`` (its floor off).
    The library yardstick of every selection is the dense score product as
    one ``torch.addmm`` (TF32 off and on, the faster kept) and ``torch.topk``
@@ -27,12 +29,13 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    block and merge kernels' device times (``torch.profiler``; with one live
    bank block no merge is launched), the rows that took their exact
    escalation and, for the newest-first one, the rows its floor emptied;
-   for the resident one its bank segments, its compactions of full
-   candidate buffers and, with several segments, its block and merge
-   kernels' device times;
-   and, on the 72-slot clustered bank at N = 8100, the sort kernel at
-   top_k = 256, where each row keeps more candidates than the kernel ranks
-   one by one;
+   for the two on the resident walk (resident, iterative) their bank
+   segments, their compactions of full candidate buffers and their walk
+   and merge kernels' device times (no merge with one segment);
+   and, on the 72-slot clustered bank at N = 8100, the sort and the
+   iterative kernels at top_k = 256 (32-query tiles and 512-key buffers in
+   the walk; each row of the sort kernel keeps more candidates than it
+   ranks one by one);
 4. the two readout kernels against their plain version, ``F.embedding_bag``
    and their bound on the oldest-first selection of every case of phase 3
    (K = 1, CV = 512; K = 2 too on the 72-slot banks at N = 8100), with each
@@ -109,16 +112,21 @@ PROB_ATOL, PROB_FRAC = 5e-2, 1e-3
 
 # the block and merge kernels of the selections timed one by one: those
 # of the pruned block stage (the transposed and the row-output kernels),
-# and the resident kernel with the transposed merge of its segments
+# and the resident walk with the transposed merge of its segments (the
+# resident selection) or the cut of their lists into rows (the iterative
+# one)
 SPLIT_KERNELS = {
     "memory_topk": ("topk_prune_block_kernel", "topk_merge_t_kernel"),
     "memory_topk_chunked": ("topk_prune_block_kernel", "topk_merge_t_kernel"),
     "memory_topk_resident": ("topk_resident_kernel", "topk_merge_t_kernel"),
     "memory_topk_grid": ("topk_rows_block_kernel", "topk_rows_merge_kernel"),
+    "memory_topk_iter": ("topk_resident_kernel", "topk_rows_cut_kernel"),
     "memory_topk_sort": ("topk_rows_block_kernel", "topk_rows_merge_kernel")}
-# the sort kernel's largest top_k: ~300 keys of a row survive its pruning,
-# more than it ranks one by one, so it sorts them in a warp
+# the largest top_k, checked and timed for the sort and iterative kernels:
+# ~300 keys of a sort kernel's row survive its pruning, more than it ranks
+# one by one, so it sorts them in a warp; the walk takes 32-query tiles
 SORT_WIDE_K = 256
+WIDE_KERNELS = ("memory_topk_sort", "memory_topk_iter")
 
 # the selections that return [N, k] rows (softmax weights by default)
 ROW_SELECTIONS = ("memory_topk_grid", "memory_topk_iter", "memory_topk_sort")
@@ -312,38 +320,56 @@ def library_times(torch, mk, q, ref_vals, k=None):
     return times
 
 
-def sort_wide_case(torch, q, mk, valid, esc):
-    """The sort kernel at top_k = SORT_WIDE_K on one bank: checked against
-    the plain version, timed with its block and merge split and its
-    escalated rows, beside the library call at the same k."""
-    from eva_vos_tpu_torch.kernels import topk_select_plain, topk_select_sort
-    from eva_vos_tpu_torch.kernels.memory_topk import _SELECT_BLOCK
+def wide_case(torch, name, q, mk, valid, counter):
+    """Kernel ``name`` of WIDE_KERNELS at top_k = SORT_WIDE_K on one bank:
+    checked against the plain version, timed with its block (or walk) and
+    merge split, beside the library call at the same k; with the sort
+    kernel's escalated rows or the iterative kernel's compactions (both
+    counted in ``counter``)."""
+    from eva_vos_tpu_torch.kernels import (topk_select_iter,
+                                           topk_select_plain, topk_select_sort)
+    from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
+                                                       iter_segments)
 
     k, n = SORT_WIDE_K, q.shape[0]
-    label = f"memory_topk_sort fill{max(FILLS)}_clustered N={n} top_k={k}"
+    label = f"{name} fill{max(FILLS)}_clustered N={n} top_k={k}"
     ref_vals, ref_idx = topk_select_plain(q, mk, valid, k + 1)
-    esc.zero_()
-    vals, idx = topk_select_sort(q, mk, valid, k, return_raw=True,
-                                 escalations=esc)
+    counter.zero_()
+    if name == "memory_topk_sort":
+        select, count = topk_select_sort, "escalations"
+        rows = n * -(-valid // _SELECT_BLOCK)
+        merged = valid > _SELECT_BLOCK
+    else:
+        select, count = topk_select_iter, "compactions"
+        segs = iter_segments(n, valid, k, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        merged = segs > 1
+    vals, idx = select(q, mk, valid, k, return_raw=True, **{count: counter})
     err, n_diff = check_selection(torch, vals.T, idx.T, ref_vals, ref_idx,
                                   label, k)
-    rows = n * -(-valid // _SELECT_BLOCK)
-    row = dict(kernel="memory_topk_sort", top_k=k, n=n, max_abs_err=err,
-               ids_differ=n_diff, escalated_rows=int(esc.item()), rows=rows,
-               ms=cuda_ms(torch, lambda: topk_select_sort(q, mk, valid, k),
-                          10),
-               **split_ms(torch, lambda: topk_select_sort(q, mk, valid, k),
-                          "memory_topk_sort"))
+    row = dict(kernel=name, top_k=k, n=n, max_abs_err=err,
+               ids_differ=n_diff,
+               ms=cuda_ms(torch, lambda: select(q, mk, valid, k), 10),
+               **split_ms(torch, lambda: select(q, mk, valid, k), name,
+                          merged=merged))
+    if name == "memory_topk_sort":
+        row.update(escalated_rows=int(counter.item()), rows=rows)
+        note = f"escalated rows {row['escalated_rows']} of {rows}"
+        first = "block"
+    else:
+        row.update(compactions=int(counter.item()), segments=segs)
+        note = (f"segments {segs}, compactions {row['compactions']} "
+                f"({row['compactions'] / n:.2f} a query)")
+        first = "walk"
     lib = library_times(torch, mk[:valid], q, ref_vals, k)
     row["library_ms"] = min(lib.values())
     row["bound_ms"], row["bound_by"] = selection_bound(n, valid, k)
     print(f"[select] {label}: max|dv|={err:.3g} ids_differ={n_diff} kernel "
-          f"{row['ms']:.3f} ms (block kernel {row['block_ms']:.3f} ms + merge "
+          f"{row['ms']:.3f} ms ({first} kernel {row['block_ms']:.3f} ms + merge "
           f"kernel {row['merge_ms']:.3f} ms), addmm+torch.topk "
           f"{row['library_ms']:.3f} ms (fp32 {lib['fp32']:.3f}, tf32 "
           f"{lib['tf32']:.3f}), bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}), escalated rows {row['escalated_rows']} of "
-          f"{rows}", flush=True)
+          f"({row['bound_by']}), {note}", flush=True)
     return row
 
 
@@ -525,10 +551,12 @@ def readout_inputs(torch):
 def kernel_phases(torch, results):
     from eva_vos_tpu_torch.kernels import (select_topk, topk_select,
                                            topk_select_chunked,
-                                           topk_select_grid, topk_select_plain,
+                                           topk_select_grid, topk_select_iter,
+                                           topk_select_plain,
                                            topk_select_resident,
                                            topk_select_sort)
     from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
+                                                       iter_segments,
                                                        resident_segments)
     from eva_vos_tpu_torch.ops.memory_attention import (_scores,
                                                         memory_affinity_topk,
@@ -544,6 +572,9 @@ def kernel_phases(torch, results):
     esc = torch.zeros(1, dtype=torch.int32, device=dev)
     floored = torch.zeros(1, dtype=torch.int32, device=dev)
     sel_rows, sels = [], {}
+    # the selections on the resident walk and their segment rules
+    walks = {"memory_topk_resident": resident_segments,
+             "memory_topk_iter": iter_segments}
 
     def topk_counted(q, mk, valid, top_k):
         return topk_select(q, mk, valid, top_k, escalations=esc)
@@ -561,7 +592,8 @@ def kernel_phases(torch, results):
         return vals.T, idx.T
 
     def iter_transposed(q, mk, valid, top_k):
-        vals, idx = select_topk(mk, q, top_k, valid, return_raw=True)
+        vals, idx = topk_select_iter(q, mk, valid, top_k, return_raw=True,
+                                     compactions=esc)
         return vals.T, idx.T
 
     def sort_transposed(q, mk, valid, top_k):
@@ -573,7 +605,8 @@ def kernel_phases(torch, results):
         return lambda q, mk, valid: select_topk(mk, q, TOP_K, valid, **kwargs)
 
     # (name in the kernels line, transposed selection (counting escalations,
-    # or the resident kernel's compactions, in esc), the call timed)
+    # or the walks' compactions, in esc), the call timed: select_topk's for
+    # the iterative and sort kernels)
     selectors = (
         ("memory_topk", topk_counted,
          lambda q, mk, valid: topk_select(q, mk, valid, TOP_K)),
@@ -639,18 +672,17 @@ def kernel_phases(torch, results):
                                topk_only_ms=topk_only_ms,
                                bound_ms=bound, bound_by=by)
                     note = ""
-                    if name == "memory_topk_resident":
-                        segs = resident_segments(n, valid, TOP_K, sms)
+                    if name in walks:
+                        segs = walks[name](n, valid, TOP_K, sms)
                         row.update(compactions=int(esc.item()), segments=segs)
+                        row.update(split_ms(
+                            torch, lambda: timed(q, mk, valid), name,
+                            merged=segs > 1))
                         note = (f", segments {segs}, compactions "
                                 f"{row['compactions']} ("
-                                f"{row['compactions'] / n:.2f} a query)")
-                        if segs > 1:
-                            row.update(split_ms(
-                                torch, lambda: timed(q, mk, valid), name))
-                            note += (f", block kernel {row['block_ms']:.3f} "
-                                     f"ms + merge kernel "
-                                     f"{row['merge_ms']:.3f} ms")
+                                f"{row['compactions'] / n:.2f} a query), "
+                                f"walk kernel {row['block_ms']:.3f} ms + "
+                                f"merge kernel {row['merge_ms']:.3f} ms")
                     elif name in SPLIT_KERNELS:
                         row.update(split_ms(
                             torch, lambda: timed(q, mk, valid), name,
@@ -677,8 +709,9 @@ def kernel_phases(torch, results):
                     if name == "memory_topk":
                         sels[(case, n)] = (vals, idx)
                 if clustered and fill == max(FILLS) and n == N_QUERIES:
-                    results["sort_wide"] = sort_wide_case(torch, q, mk, valid,
-                                                          esc)
+                    for name in WIDE_KERNELS:
+                        results[f"{name}_wide"] = wide_case(
+                            torch, name, q, mk, valid, esc)
 
             del mk
     results["selection"] = sel_rows

@@ -15,646 +15,30 @@
 // once per 16-query tile (7.6 GB at fill 72, N = 8,100) and runs four row
 // passes over each (query, 2,048-token block) row of scores.
 //
-// Design.  The TPU kernel keeps the whole bank in VMEM, makes query tiles
-// its only grid dimension and runs the bank loop inside the kernel.  Here
-// the bank stays in the 50 MB L2 (the chip_smoke.py measurements: PERF.md):
-//
-//  1. grid: (tiles of 64 queries, or 32 for top_k > 128) x (S segments of
-//     the live bank, in 128-token steps).  The caller picks S
-//     (memory_topk.py:resident_segments): one segment when the tiles fill
-//     the card (N = 8,100: 127 tiles), more when they do not (N = 1,620:
-//     five).  With one segment the block stores [k, N] itself; with
-//     several, each writes its queries' sorted 64-bit keys (topk_prune.cuh's
-//     key: score bits, then ~id) to part[N, S, k], and topk_prune.cuh's
-//     topk_merge_t_kernel merges them, as for memory_topk.cu.
-//  2. the bank loop: the block walks its segment newest first (the engine's
-//     newest memory frames lie nearest to its queries, so the thresholds
-//     rise early), 128 tokens a step, staged through a ring of kRing steps
-//     by the Tensor Memory Accelerator: one thread issues each step as one
-//     16 KB tensor load (128-byte swizzle, so that ldmatrix reads hit
-//     distinct banks) that completes the slot's mbarrier (per-thread
-//     cp.async, 1,024 a step, stalled at issue).  bf16 keys are scored on
-//     the tensor cores: the block's queries are MT m16 A tiles, each of the
-//     16 warps holds two of them in registers for the whole walk and scores
-//     them against 16 (MT = 4) or 8 (MT = 2) tokens of a step (mma.sync
-//     m16n8k16), and |k|^2 is the diagonal of the Gram product of those
-//     keys, on the tensor cores too.  The shared memory allows one block an
-//     SM, so the block brings its own latency hiding (16 warps of at most
-//     128 registers) and leaves L1 ~30 KB: nothing may spill, and no
-//     register array may be indexed at run time.  fp32 keys are scored on
-//     the FP32 units, exactly, as topk_common.cuh's score_block does (keys
-//     read from L2 directly).
-//  3. a running threshold per query: the k-th largest key that the query's
-//     buffer kept at its last compaction (0 until then).  Scores are
-//     compared with it in registers as x = 2 <q, k> - |k|^2 against 8 times
-//     its score (exact: a power of two), a row's largest x first, so that
-//     most rows of most steps cost one compare; the keys above the
-//     thresholds go to the queries' candidate buffers in shared memory, a
-//     lane's few keys of a row by one shared atomic.  Keys are distinct, so
-//     "key > threshold" is exact in any order and at ties, and a threshold,
-//     the k-th key of a subset of the tokens, never exceeds the query's true
-//     k-th key: no winner is refused and no escalation exists.
-//  4. compaction waves: after a step (not the last) that left some buffer
-//     of the block with more than kCap - kStep keys, every buffer that
-//     gained keys since its last compaction is sorted by a warp (bitonic, in
-//     registers, over as many keys as it holds), cut to its first k keys,
-//     and its threshold set to the k-th; each warp compacts its own queries,
-//     in parallel.  A buffer then holds at most kCap - kStep keys when a
-//     step begins and never overflows.  The block waits at its barrier for
-//     the slowest warp's sorts, so compacting each buffer only when it
-//     filled cost a wait in every step where one did (198 of 912 steps of a
-//     64-query block at fill 72, iid keys); waves make that 9.  After the
-//     walk one last compaction leaves the answer.  `compactions`, when not
-//     null, counts the compactions during the walk (not the last one),
-//     summed over queries and segments: waves fall at step boundaries and a
-//     step's admitted keys do not depend on timing, so the count is
-//     deterministic.  memory_topk.py:resident_lists states the walk for the
-//     tests.
+// Design: the walk of resident_walk.cuh, whose notes give it whole (query
+// tiles walking their segment of the bank newest first in TMA-staged
+// 128-token steps, bf16 scores on the tensor cores, a running threshold per
+// query, candidate buffers compacted in waves by a warp sort), with the
+// transposed epilogue: with one segment the block stores [k, N] as runs of
+// its queries; with several, topk_prune.cuh's topk_merge_t_kernel merges
+// the segments' sorted lists.  memory_topk_iter.cu runs the same walk with
+// the row epilogue, and cuts its buffers by a bisection in place of the
+// sort.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "topk_prune.cuh"
-
-namespace {
-
-using namespace prune;
-
-constexpr int kStep = 128;                 // bank tokens a block scores a step
-constexpr int kWarps = 16;
-constexpr int kThreads = 32 * kWarps;      // 512
-constexpr int kRing = 4;                   // staged steps of bf16 keys
-constexpr int kStepElems = kStep * 64;     // bf16 of one staged step: 16 KB
-constexpr int kQStride = 68;               // fp32 query row (padded: banks)
-
-// MT m16 tiles of queries a block: 4 (64 queries, 256-key buffers) for
-// top_k <= 128, 2 (32 queries, 512-key buffers) above: 128 KB of buffers
-// either way, so that top_k <= kCap - kStep (memory_topk.py's
-// resident_geometry states it).  A warp scores one of the kPairs pairs of
-// m16 tiles (32 queries) against kWarpToks tokens of each step.
-template <int MT>
-struct Tile {
-  static constexpr int kQ = 16 * MT;
-  static constexpr int kCap = MT == 4 ? 256 : 512;
-  static constexpr int kStride = kCap + 1;   // u64 a buffer: spreads banks
-  static constexpr int kMine = kQ / kWarps;  // buffers a warp compacts
-  static constexpr int kPairs = MT / 2;
-  static constexpr int kWarpToks = kStep * kPairs / kWarps;  // 16 or 8
-};
-
-static_assert(256 <= Tile<2>::kCap - kStep && 128 <= Tile<4>::kCap - kStep,
-              "a compacted buffer leaves room for a step");
-
-template <typename T>
-constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// Shared memory (after rounding its base up to kRingAlign): the staging
-// ring (bf16) or the fp32 queries, then the candidate buffers, the
-// thresholds (key, and its score: -inf for key 0), the buffers' key counts
-// and the ring's mbarriers.
-template <typename T, int MT>
-__host__ __device__ constexpr size_t head_bytes() {
-  return kBf16<T> ? sizeof(__nv_bfloat16) * kRing * kStepElems
-                  : sizeof(float) * Tile<MT>::kQ * kQStride;
-}
-
-constexpr size_t kRingAlign = 1024;  // the 128-byte swizzle's period
-
-template <typename T, int MT>
-constexpr size_t smem_bytes() {
-  using G = Tile<MT>;
-  return kRingAlign + head_bytes<T, MT>() +
-         sizeof(u64) * G::kQ * (G::kStride + 1) +
-         (sizeof(float) + sizeof(int)) * G::kQ + sizeof(u64) * kRing;
-}
-
-__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// One TMA load of a [128 token, 64 channel] bf16 box at token row `row` to
-// dst (1,024-byte aligned), 128-byte swizzled: 16-byte unit u of row r at
-// u ^ (r & 7); rows past the map's `valid` rows are zeros.  `bar` counts
-// its bytes.
-__device__ __forceinline__ void tma_load_step(void* dst, const CUtensorMap* map,
-                                              int row, u64* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(kStepElems * 2)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(0), "r"(row),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(u64* bar, unsigned phase) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(phase)
-      : "memory");
-}
-
-// The bits of row (0, 0) in a warp's admission mask over NT n8 tiles: bit
-// (2 nt + m) * 4 + i is score i of m16 tile m in n8 tile nt, of the tile's
-// row g + 8 (i >> 1) (the m16n8 accumulator layout); row (m, h)'s bits are
-// these shifted left by 4 m + 2 h.
-template <int NT>
-__device__ __forceinline__ constexpr unsigned row_bits() {
-  unsigned bits = 0;
-  for (int nt = 0; nt < NT; ++nt) bits |= 3u << (8 * nt);
-  return bits;
-}
-
-// s[b] of N registers by a tree of selects on b's bits: an array indexed at
-// run time would live in local memory.
-template <int N>
-__device__ __forceinline__ float pick(const float* s, unsigned b) {
-  if constexpr (N == 1) {
-    return s[0];
-  } else {
-    const float lo = pick<N / 2>(s, b);
-    const float hi = pick<N / 2>(s + N / 2, b);
-    return (b & (N / 2)) ? hi : lo;
-  }
-}
-
-// A buffer's `count` keys, sorted descending by the warp (bitonic, in
-// registers: topk_prune.cuh's sort_candidates) over the fewest registers
-// that hold max(count, top_k) keys (at most CAP), the first top_k written
-// back in place, zeros past `count`.  A network of 32 R keys costs about
-// R log^2(32 R).
-template <int CAP>
-__device__ __forceinline__ void sort_buffer(u64* buf, int count, int top_k) {
-  const int most = max(count, top_k);
-  if (most <= 64) {
-    sort_candidates<2>(buf, count, top_k, buf);
-  } else if (most <= 128) {
-    sort_candidates<4>(buf, count, top_k, buf);
-  } else if (CAP <= 256 || most <= 256) {
-    sort_candidates<8>(buf, count, top_k, buf);
-  } else {
-    sort_candidates<CAP / 32>(buf, count, top_k, buf);
-  }
-  __syncwarp();
-}
-
-template <typename T, int MT>
-__global__ void __launch_bounds__(kThreads, 1)
-topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
-                     float* __restrict__ vals, int* __restrict__ idx,
-                     u64* __restrict__ part, int n, int valid, int top_k,
-                     int* __restrict__ compactions,
-                     const __grid_constant__ CUtensorMap keys) {
-  using G = Tile<MT>;
-  extern __shared__ __align__(16) unsigned char res_smem[];
-  unsigned char* head = res_smem + (kRingAlign - smem_addr(res_smem) %
-                                                     kRingAlign) % kRingAlign;
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(head);
-  float* s_q = reinterpret_cast<float*>(head);
-  u64* cand = reinterpret_cast<u64*>(head + head_bytes<T, MT>());
-  u64* thr = cand + G::kQ * G::kStride;
-  float* thr_v = reinterpret_cast<float*>(thr + G::kQ);
-  int* cnt = reinterpret_cast<int*>(thr_v + G::kQ);
-  u64* full = reinterpret_cast<u64*>(cnt + G::kQ);  // [kRing] mbarriers
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int quad = lane & 3;
-  const int q0 = blockIdx.x * G::kQ;
-  // the warp's 32 queries (m16 tiles 2 p, 2 p + 1) and its kWarpToks
-  // tokens of each step (from token group tg on)
-  const int pair = warp % G::kPairs;
-  const int tg = warp / G::kPairs;
-  // this block's steps [first, last) of the live bank, walked last first
-  const int n_steps = (valid + kStep - 1) / kStep;
-  const int first = static_cast<int>(
-      static_cast<long long>(blockIdx.y) * n_steps / gridDim.y);
-  const int last = static_cast<int>(
-      static_cast<long long>(blockIdx.y + 1) * n_steps / gridDim.y);
-  const int count = last - first;
-
-  for (int r = threadIdx.x; r < G::kQ; r += kThreads) {
-    thr[r] = 0ull;
-    thr_v[r] = topk::neg_inf();
-    cnt[r] = 0;
-  }
-  if (kBf16<T> && threadIdx.x == 0) {
-    for (int i = 0; i < kRing; ++i) mbar_init(full + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  // the lane's rows of the accumulator tiles: query 32 pair + 16 m + g + 8 h
-  int rows[2][2];
-  bool row_live[2][2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rows[m][h] = 32 * pair + 16 * m + g + 8 * h;
-      row_live[m][h] = q0 + rows[m][h] < n;
-    }
-  }
-  unsigned a[2][4][4];  // bf16: the warp's queries as A fragments
-  if constexpr (kBf16<T>) {
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int c = 16 * kk + 2 * quad;
-        const int q = q0 + rows[m][0];
-        a[m][kk][0] = query_pair(qk, q, n, c);
-        a[m][kk][1] = query_pair(qk, q + 8, n, c);
-        a[m][kk][2] = query_pair(qk, q, n, c + 8);
-        a[m][kk][3] = query_pair(qk, q + 8, n, c + 8);
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < G::kQ * 8; e += kThreads) {
-      const int qq = e >> 3;
-      const int c = (e & 7) * 8;
-      float v[8];
-      if (q0 + qq < n) {
-        load8(qk + static_cast<size_t>(q0 + qq) * 64 + c, v);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s_q[qq * kQStride + c + i] = v[i];
-    }
-  }
-
-  // bf16: walked step j (bank step last - 1 - j) into ring slot j % kRing
-  // by one TMA load (thread 0), which completes the slot's mbarrier
-  auto issue = [&](int j) {
-    if (kBf16<T> && threadIdx.x == 0 && j < count) {
-      // the slot's last readers passed a barrier: order their (generic)
-      // reads before the (async) write
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      tma_load_step(ring + (j % kRing) * kStepElems, &keys,
-                    (last - 1 - j) * kStep, full + j % kRing);
-    }
-  };
-#pragma unroll
-  for (int j = 0; j < kRing - 1; ++j) issue(j);
-
-  constexpr int kNT = G::kWarpToks / 8;  // the warp's n8 tiles of a step
-  int compacted = 0;  // this warp's compactions during the walk
-  bool over = false;  // one of this warp's buffers could overflow next step
-#pragma unroll 1
-  for (int j = 0; j < count; ++j) {
-    if constexpr (kBf16<T>) mbar_wait(full + j % kRing, (j / kRing) & 1);
-    // step j is staged, and every warp is done with step j - 1's slot and
-    // appends.  A compaction wave: when some buffer of the block holds more
-    // than kCap - kStep keys, every buffer that gained keys since its last
-    // compaction is compacted (warp w its buffers w, w + kWarps, ...), so
-    // that the block waits for a warp's sorts in a few steps, not in every
-    // step where one buffer fills.
-    if (__syncthreads_or(over)) {
-      const int c = lane < G::kMine ? cnt[warp + kWarps * lane] : 0;
-      unsigned todo = __ballot_sync(kFull, c > top_k);
-      while (todo) {
-        const int row = warp + kWarps * (__ffs(todo) - 1);
-        todo &= todo - 1;
-        u64* buf = cand + row * G::kStride;
-        sort_buffer<G::kCap>(buf, cnt[row], top_k);
-        if (lane == 0) {
-          const u64 kth = buf[top_k - 1];  // more than top_k keys were there
-          float tvk;
-          int id;
-          unpack(kth, tvk, id);
-          thr[row] = kth;
-          thr_v[row] = tvk;
-          cnt[row] = top_k;
-        }
-        ++compacted;
-      }
-      __syncthreads();
-    }
-    issue(j + kRing - 1);
-    const int tok0 = (last - 1 - j) * kStep + tg * G::kWarpToks;
-    // the rows' thresholds as (x, id), x = 2 <q, k> - |k|^2 = 8 score
-    // (exact: a power of two): a key is above its row's if its x is
-    // greater, or equal with a lower id.  -inf: no threshold yet; +inf: a
-    // row past the last query, which admits nothing.
-    float tx[2][2];
-    int tid[2][2];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        tx[m][h] = row_live[m][h] ? 8.f * thr_v[rows[m][h]]
-                                  : __uint_as_float(0x7f800000u);
-        tid[m][h] = static_cast<int>(~static_cast<unsigned>(thr[rows[m][h]]));
-      }
-    }
-
-    // x[nt][m][i]: (query rows[m][i >> 1], token tok0 + 8 nt + 2 quad +
-    // (i & 1)), the m16n8 accumulator layout; -inf for a token past valid
-    float x[kNT][2][4];
-    if constexpr (kBf16<T>) {
-      const __nv_bfloat16* stage = ring + (j % kRing) * kStepElems;
-      const int row0 = tg * G::kWarpToks;  // the warp's first row of the step
-      unsigned b[kNT][8];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int r = row0 + 8 * nt + (lane & 7);
-        const __nv_bfloat16* rowp = stage + r * 64;
-        ldmatrix_x4(b[nt], rowp + (((lane >> 3) ^ (r & 7)) << 3));
-        ldmatrix_x4(b[nt] + 4, rowp + ((((lane >> 3) + 4) ^ (r & 7)) << 3));
-      }
-      // |k|^2 on the tensor cores: the diagonal of K K^T, K the warp's 16
-      // staged keys (8 twice over with one n8 tile) as an m16 A tile
-      float gram[kNT][4];
-      {
-        const int r = row0 + (kNT == 2 ? (lane & 15) : (lane & 7));
-        const __nv_bfloat16* rowp = stage + r * 64;
-        unsigned ak[4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          ldmatrix_x4(ak[kk], rowp + (((2 * kk + (lane >> 4)) ^ (r & 7)) << 3));
-        }
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) gram[nt][e] = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            mma_bf16(gram[nt], ak[kk], b[nt][2 * kk], b[nt][2 * kk + 1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        // token c of the tile: row 8 nt + c of K, held by lane 4 c + c / 2
-        // as element 2 nt + (c & 1) of its gram[nt]
-        const int tok = tok0 + 8 * nt + 2 * quad;
-        float sq0 = __shfl_sync(kFull, gram[nt][2 * nt], 9 * quad);
-        float sq1 = __shfl_sync(kFull, gram[nt][2 * nt + 1], 9 * quad + 4);
-        if (tok >= valid) sq0 = __uint_as_float(0x7f800000u);
-        if (tok + 1 >= valid) sq1 = __uint_as_float(0x7f800000u);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            mma_bf16(d, a[m][kk], b[nt][2 * kk], b[nt][2 * kk + 1]);
-          }
-          x[nt][m][0] = 2.f * d[0] - sq0;
-          x[nt][m][1] = 2.f * d[1] - sq1;
-          x[nt][m][2] = 2.f * d[2] - sq0;
-          x[nt][m][3] = 2.f * d[3] - sq1;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          // the key 8 channels at a time (64 registers of it spilled); each
-          // sum still runs over the channels in order, as score_block's
-          const int tok = tok0 + 8 * nt + 2 * quad + e;
-          float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-          float sq = 0.f;
-#pragma unroll
-          for (int c = 0; c < 64; c += 8) {
-            float kv[8];
-            if (tok < valid) {
-              load8(mk + static_cast<size_t>(tok) * 64 + c, kv);
-            } else {
-#pragma unroll
-              for (int i = 0; i < 8; ++i) kv[i] = 0.f;
-            }
-#pragma unroll
-            for (int i = 0; i < 8; ++i) sq = fmaf(kv[i], kv[i], sq);
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const float* qrow = s_q + rows[m][h] * kQStride + c;
-#pragma unroll
-                for (int i = 0; i < 8; i += 4) {
-                  const float4 qv = *reinterpret_cast<const float4*>(qrow + i);
-                  acc[m][h] = fmaf(qv.x, kv[i], acc[m][h]);
-                  acc[m][h] = fmaf(qv.y, kv[i + 1], acc[m][h]);
-                  acc[m][h] = fmaf(qv.z, kv[i + 2], acc[m][h]);
-                  acc[m][h] = fmaf(qv.w, kv[i + 3], acc[m][h]);
-                }
-              }
-            }
-          }
-          if (tok >= valid) sq = __uint_as_float(0x7f800000u);
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              x[nt][m][2 * h + e] = 2.f * acc[m][h] - sq;
-            }
-          }
-        }
-      }
-    }
-
-    // admit: a row whose largest x is below its threshold's admits nothing
-    // (most rows of most steps: one compare a row); the others' keys above
-    // their thresholds set bit (2 nt + m) * 4 + i of `in`, and a lane
-    // appends its few keys, each row's by one shared atomic
-    unsigned hit = 0;
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float top = fmaxf(x[0][m][2 * h], x[0][m][2 * h + 1]);
-#pragma unroll
-        for (int nt = 1; nt < kNT; ++nt) {
-          top = fmaxf(top, fmaxf(x[nt][m][2 * h], x[nt][m][2 * h + 1]));
-        }
-        hit |= static_cast<unsigned>(top >= tx[m][h]) << (2 * m + h);
-      }
-    }
-    if (hit) {
-      unsigned in = 0;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int h = i >> 1;
-            const int tok = tok0 + 8 * nt + 2 * quad + (i & 1);
-            const float v = x[nt][m][i];
-            const bool pass =
-                v > tx[m][h] || (v == tx[m][h] && tok < tid[m][h]);
-            in |= static_cast<unsigned>(pass) << ((2 * nt + m) * 4 + i);
-          }
-        }
-      }
-      int at[2][2];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = __popc(in & (row_bits<kNT>() << (4 * m + 2 * h)));
-          at[m][h] = c > 0 ? atomicAdd(&cnt[rows[m][h]], c) : 0;
-        }
-      }
-      for (unsigned y = in; y != 0; y &= y - 1) {
-        const int bit = __ffs(y) - 1;
-        const int m = (bit >> 2) & 1;
-        const int h = (bit >> 1) & 1;
-        const int tok = tok0 + 8 * (bit >> 3) + 2 * quad + (bit & 1);
-        const int p = m ? (h ? at[1][1]++ : at[1][0]++)
-                        : (h ? at[0][1]++ : at[0][0]++);
-        cand[(32 * pair + 16 * m + g + 8 * h) * G::kStride + p] =
-            key_of(ord_of(pick<kNT * 8>(&x[0][0][0], bit) / 8.f + 0.f), tok);
-      }
-    }
-    __syncthreads();  // the step's appends are in the buffers
-    const int c = lane < G::kMine ? cnt[warp + kWarps * lane] : 0;
-    over = __any_sync(kFull, c > G::kCap - kStep);
-  }
-  __syncthreads();  // the walk's last appends, or the init
-
-  // the last compaction: each warp's queries' first k keys, sorted
-  const bool direct = gridDim.y == 1;
-#pragma unroll 1
-  for (int i = 0; i < G::kMine; ++i) {
-    const int row = warp + kWarps * i;
-    u64* buf = cand + row * G::kStride;
-    sort_buffer<G::kCap>(buf, cnt[row], top_k);
-    const int q = q0 + row;
-    if (!direct && q < n) {
-      u64* out = part + (static_cast<size_t>(q) * gridDim.y + blockIdx.y) *
-                            top_k;
-      for (int e = lane; e < top_k; e += 32) out[e] = buf[e];
-    }
-  }
-  if (lane == 0 && compacted > 0 && compactions != nullptr) {
-    atomicAdd(compactions, compacted);
-  }
-  if (!direct) return;
-  __syncthreads();
-  // rows t of [k, N] as runs of the block's queries
-  for (int e = threadIdx.x; e < top_k * G::kQ; e += kThreads) {
-    const int t = e / G::kQ;
-    const int qq = e % G::kQ;
-    if (q0 + qq < n) {
-      float v;
-      int id;
-      unpack(cand[qq * G::kStride + t], v, id);
-      vals[static_cast<size_t>(t) * n + q0 + qq] = v;
-      idx[static_cast<size_t>(t) * n + q0 + qq] = id;
-    }
-  }
-}
-
-// The TMA map of bf16 keys mk [valid, 64] in boxes of one step, 128-byte
-// swizzled (the map's rows stop at `valid`: the TMA writes zeros past it).
-// cuTensorMapEncodeTiled is looked up at run time (cudaGetDriverEntryPoint),
-// so the library needs no link against libcuda.
-cudaError_t keys_map(const void* mk, int valid, CUtensorMap* map) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-        cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      encode = nullptr;
-      return err != cudaSuccess ? err : cudaErrorSymbolNotFound;
-    }
-  }
-  const cuuint64_t dims[2] = {64, static_cast<cuuint64_t>(valid)};
-  const cuuint64_t strides[1] = {64 * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, kStep};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(mk), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-template <typename T, int MT>
-int launch(const void* qk, const void* mk, float* vals, int* idx, u64* part,
-           int n, int valid, int top_k, int segments, int* compactions,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, MT>();
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_resident_kernel<T, MT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap map{};
-  if (kBf16<T> && valid > 0) {
-    err = keys_map(mk, valid, &map);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((n + Tile<MT>::kQ - 1) / Tile<MT>::kQ, segments);
-  topk_resident_kernel<T, MT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qk), static_cast<const T*>(mk), vals, idx, part,
-      n, valid, top_k, compactions, map);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || segments == 1) return static_cast<int>(err);
-  return launch_merge_t<kMergeQ>(part, vals, idx, n, top_k, segments, stream);
-}
-
-template <typename T>
-int launch_dtype(const void* qk, const void* mk, float* vals, int* idx,
-                 u64* part, int n, int valid, int top_k, int segments,
-                 int* compactions, cudaStream_t stream) {
-  if (top_k <= 128) {
-    return launch<T, 4>(qk, mk, vals, idx, part, n, valid, top_k, segments,
-                        compactions, stream);
-  }
-  return launch<T, 2>(qk, mk, vals, idx, part, n, valid, top_k, segments,
-                      compactions, stream);
-}
-
-}  // namespace
+#include "resident_walk.cuh"
 
 extern "C" {
 
-// qk [n, ck], mk [m >= valid, ck] row-major, 16-byte aligned, fp32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1), ck = 64; vals/idx [top_k, n],
-// 1 <= top_k <= 256.  segments: the bank segments S, 1 <= S <= the live
-// 128-token steps (any S >= 1 when valid = 0), at most kMaxLists; part:
-// [n, S, top_k] 64-bit scratch, or null when S = 1.  compactions: null, or
-// one int32 on the device that counts the compactions of full buffers.
-// Returns a cudaError_t code.
+// See walk::launch_checked; vals/idx [top_k, n].  Returns a cudaError_t
+// code.
 int memory_topk_resident_launch(const void* qk, const void* mk, void* vals,
                                 void* idx, void* part, int n, int valid,
                                 int ck, int top_k, int segments,
                                 void* compactions, int is_bf16,
                                 void* stream) {
-  if (n <= 0) return 0;
-  const int n_steps = (valid + kStep - 1) / kStep;
-  if (ck != 64 || top_k < 1 || top_k > 256 || valid < 0 || segments < 1 ||
-      segments > kMaxLists || (segments > n_steps && segments > 1) ||
-      (segments > 1 && part == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  float* v = static_cast<float*>(vals);
-  int* i = static_cast<int*>(idx);
-  u64* p = static_cast<u64*>(part);
-  int* c = static_cast<int*>(compactions);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_dtype<__nv_bfloat16>(qk, mk, v, i, p, n, valid, top_k,
-                                       segments, c, s);
-  }
-  return launch_dtype<float>(qk, mk, v, i, p, n, valid, top_k, segments, c, s);
+  return walk::launch_checked<false>(qk, mk, vals, idx, part, n, valid, ck,
+                                     top_k, segments, compactions, 1, is_bf16,
+                                     stream);
 }
 
 const char* memory_topk_resident_error_string(int status) {

@@ -1,7 +1,7 @@
-// Shared pieces of the exact top-k selection kernels (sm_90a):
-// memory_topk_iter.cu and topk_prune.cuh (score_block and warp_softmax_row;
-// topk_prune.cuh serves memory_topk.cu, memory_topk_sort.cu,
-// memory_topk_grid.cu and memory_topk_resident.cu).
+// Shared pieces of the exact top-k selection kernels (sm_90a), through
+// topk_prune.cuh (score_block and warp_softmax_row; topk_prune.cuh serves
+// memory_topk.cu, memory_topk_sort.cu, memory_topk_grid.cu and, through
+// resident_walk.cuh, memory_topk_resident.cu and memory_topk_iter.cu).
 //
 // All of them score memory token t for query n as
 //     score(n, t) = (2 * <q_n, k_t> - |k_t|^2) / sqrt(CK)
@@ -16,10 +16,6 @@
 namespace topk {
 
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ bool better(float v, int id, float ov, int oid) {
-  return v > ov || (v == ov && id < oid);
-}
 
 // Eight consecutive elements (16 bytes of bf16, 32 of fp32) as fp32.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
@@ -44,8 +40,8 @@ __device__ __forceinline__ float neg_inf() {
   return __uint_as_float(0xff800000u);
 }
 
-// The dense score tile of the block-per-bank-block selections
-// (memory_topk_iter.cu, and topk_prune.cuh for fp32 keys): the scores of queries
+// The dense score tile of the pruned block stage for fp32 keys
+// (topk_prune.cuh's score_tile): the scores of queries
 // [q0, q0 + QT) against tokens [lo, lo + BLK), handed to store(qq, j, score)
 // for token lo + j < hi and to store.dead(qq, j) for the others.  The
 // queries are staged once in s_q [QT][CK] fp32 (zeros past n); thread j

@@ -4,9 +4,11 @@
 // memory_topk_sort.cu (select_topk's 'sort' method) and memory_topk_grid.cu
 // (the 'select' read's selection).  A block scores a tile of 16 queries
 // against one 2,048-token bank block and leaves, for each query, the block's
-// exact top k as sorted 64-bit keys.  memory_topk_resident.cu takes its key
-// format, tensor-core scoring pieces, warp sort and the transposed merge
-// (topk_merge_t_kernel, after the block stage).
+// exact top k as sorted 64-bit keys.  The resident walk (resident_walk.cuh,
+// of memory_topk_resident.cu and memory_topk_iter.cu) takes its key format,
+// tensor-core scoring pieces and warp sort, the transposed merge
+// (topk_merge_t_kernel, after the block stage) and the row-output stage's
+// write_row (at the end).
 //
 // A candidate is one 64-bit key: the score's bits, mapped so that unsigned
 // order is float order (ord), in the high word and ~id in the low word, so

@@ -23,8 +23,9 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
   kernel's function and device code (the row-output stage of
   ``csrc/topk_prune.cuh``);
 * :func:`topk_select_iter` — ``pallas_memory_topk(method="iterative")``
-  (``_kernel_iter``), per-block k-pass extraction into a candidate buffer,
-  then one extraction, kernel ``csrc/memory_topk_iter.cu``;
+  (``_kernel_iter``), the resident kernel's walk (``csrc/resident_walk.cuh``)
+  with a row epilogue, kernel ``csrc/memory_topk_iter.cu`` (segments merged
+  by a cut of their lists); :func:`resident_rows` states it;
 * :func:`topk_select_sort` — ``pallas_memory_topk(method="sort")``
   (``_kernel``), per-block pruning to a few candidates and a ranking of
   those, then a merge of the sorted lists (no merge with one live bank
@@ -95,7 +96,7 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _iter_lib() -> ctypes.CDLL:
     return _bind("memory_topk_iter", "memory_topk_iter_launch",
-                 [_P] * 6 + [_I] * 7 + [_P])
+                 [_P] * 5 + [_I] * 5 + [_P, _I, _I, _P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,8 +180,8 @@ def _row_selection_plain(qk, mk, valid_tokens, top_k: int, return_raw: bool):
 
 def _block_lists(qk, n_live: int, top_k: int):
     """The block selections' scratch [N, n_live, top_k] of 64-bit keys, or
-    None with one live bank block (no merge); the resident selection's for
-    its segments."""
+    None with one live bank block (no merge); the resident walk's for its
+    segments."""
     if n_live == 1:
         return None
     return torch.empty((qk.shape[0], n_live, top_k), dtype=torch.int64,
@@ -288,24 +289,28 @@ def _live_blocks(valid: int) -> int:
 
 
 def topk_select_iter(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
-                     top_k: int, return_raw: bool = False):
-    """Top-k selection by per-block k-pass extraction into a candidate
-    buffer [N, live blocks * top_k] and one extraction over it -> (weights,
-    or raw scores with ``return_raw``, [N, top_k] fp32; ids [N, top_k]
-    int32).  Plain version: ``memory_affinity_topk`` / ``topk_scores``."""
+                     top_k: int, return_raw: bool = False,
+                     compactions: torch.Tensor | None = None):
+    """Top-k selection by the resident kernel's walk (query tiles walking
+    the L2-resident bank newest first with a running k-th key per query and
+    a compacted candidate buffer) with a row epilogue -> (weights, or raw
+    scores with ``return_raw``, [N, top_k] fp32; ids [N, top_k] int32), in
+    :func:`iter_segments` segments whose sorted lists a merge joins
+    (:func:`resident_rows` states it).  Plain version:
+    ``memory_affinity_topk`` / ``topk_scores``.  ``compactions`` as for
+    :func:`topk_select_resident`."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
-    n, n_live = qk.shape[0], _live_blocks(valid)
-    cand_v = torch.empty((n, n_live * top_k), dtype=torch.float32,
-                         device=qk.device)
-    cand_i = torch.empty((n, n_live * top_k), dtype=torch.int32,
-                         device=qk.device)
+    _check_counter(compactions, qk, "compactions")
+    n = qk.shape[0]
+    segments = iter_segments(n, valid, top_k, _sm_count(qk.device))
+    part = _block_lists(qk, segments, top_k)
     out_v, out_i = _row_outputs(qk, top_k)
     lib = _iter_lib()
     status = lib.memory_topk_iter_launch(
-        qk.data_ptr(), mk.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), n, valid, _CK, top_k, n_live,
+        qk.data_ptr(), mk.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        _ptr(part), n, valid, _CK, top_k, segments, _ptr(compactions),
         int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk))
     build.check("memory_topk_iter", lib, status)
     topk_select_iter.launches += 1
@@ -458,7 +463,7 @@ def list_floor(lists: torch.Tensor) -> torch.Tensor:
     return torch.where(kth == DEAD_KEY, kth, kth >> 32 << 32)
 
 
-RESIDENT_STEP = 128  # memory_topk_resident.cu's kStep: tokens a step
+RESIDENT_STEP = 128  # resident_walk.cuh's kStep: tokens a step
 
 
 def resident_geometry(top_k: int) -> tuple:
@@ -469,14 +474,32 @@ def resident_geometry(top_k: int) -> tuple:
     return (64, 256) if top_k <= 128 else (32, 512)
 
 
-def resident_segments(n: int, valid: int, top_k: int, sms: int = 132) -> int:
-    """Bank segments S of the resident kernel: as many as the query tiles
-    leave SMs for (``sms`` // tiles), at most one a live 2,048-token bank
-    block, at least one.  N = 8,100 (127 tiles of 64) gives 1; N = 1,620
-    (26 tiles) gives 5 on a 132-SM card at 5 or more live blocks."""
+def resident_segments(n: int, valid: int, top_k: int, sms: int = 132,
+                      unit: int = _SELECT_BLOCK) -> int:
+    """Bank segments S of the resident walk: as many as the query tiles
+    leave SMs for (``sms`` // tiles), at most one a live ``unit`` tokens of
+    the bank (the resident selection's: a 2,048-token bank block), at least
+    one.  N = 8,100 (127 tiles of 64) gives 1; N = 1,620 (26 tiles) gives 5
+    on a 132-SM card at 5 or more live units."""
     tiles = -(-n // resident_geometry(top_k)[0])
-    live = -(-valid // _SELECT_BLOCK)
+    live = -(-valid // unit)
     return max(1, min(live, sms // tiles))
+
+
+ITER_SEGMENT = 2 * RESIDENT_STEP  # the iterative selection's segment unit
+ITER_MERGE_KEYS = 512  # resident_walk.cuh's kCutMergeKeys: S * top_k merged
+
+
+def iter_segments(n: int, valid: int, top_k: int, sms: int = 132) -> int:
+    """Bank segments of the iterative selection: :func:`resident_segments`
+    with one segment at most a live ITER_SEGMENT tokens, so that a bank too
+    small to fill the card with tiles (N = 1,620, one 1,620-token frame:
+    five segments of two or three steps, not one of 13) spreads over more
+    SMs, and at most ITER_MERGE_KEYS // top_k segments, the lists its merge
+    takes; at 2,048 tokens or more a segment the rule is the resident
+    selection's."""
+    return min(resident_segments(n, valid, top_k, sms, ITER_SEGMENT),
+               max(1, ITER_MERGE_KEYS // top_k))
 
 
 def resident_lists(keys: torch.Tensor, valid: int, top_k: int,
@@ -531,6 +554,48 @@ def resident_lists(keys: torch.Tensor, valid: int, top_k: int,
             count = torch.where(full, torch.full_like(count, top_k), count)
         lists[:, seg] = buf.topk(top_k, dim=1).values
     return lists, compactions
+
+
+def cut_threshold(keys: torch.Tensor, top_k: int):
+    """Plain statement of the iterative kernel's cut of a candidate buffer
+    (``resident_walk.cuh``'s kth_key) over its live keys [c > top_k]
+    (:func:`sort_keys`) -> (the top_k-th largest key, bisection rounds):
+    first the largest score bits t with at least top_k keys at or above
+    them, between the keys' least and largest score bits; then, where more
+    than top_k keys are at or above t, the key itself among those tied on
+    t.  Keys are distinct, so exactly top_k keys are at or above it."""
+    u = [int(x) + 2 ** 63 for x in keys.tolist()]  # the kernel's unsigned keys
+    high = [x >> 32 for x in u]
+    lo, hi, at_lo, rounds = min(high), max(high) + 1, len(u), 0
+    while hi - lo > 1:
+        mid = lo + (hi - lo) // 2
+        c = sum(h >= mid for h in high)
+        lo, hi, at_lo = (mid, hi, c) if c >= top_k else (lo, mid, at_lo)
+        rounds += 1
+    if at_lo == top_k:  # the least key of score bits lo
+        kth = (lo << 32) | min(x & 0xFFFFFFFF for x in u if x >> 32 == lo)
+    else:
+        a, b = lo << 32, (lo + 1) << 32
+        while b - a > 1:
+            mid = a + (b - a) // 2
+            a, b = (mid, b) if sum(x >= mid for x in u) >= top_k else (a, mid)
+            rounds += 1
+        kth = a
+    return kth - 2 ** 63, rounds
+
+
+def resident_rows(keys: torch.Tensor, valid: int, top_k: int,
+                  segments: int = 1, return_raw: bool = False):
+    """Plain statement of the iterative selection (the walk with the row
+    epilogue) over keys [N, >= valid] (:func:`sort_keys`) -> (weights
+    exp(v - v_0) / sum, or the raw scores with ``return_raw``, [N, top_k]
+    fp32; ids [N, top_k] int32; compactions): the :func:`resident_lists` of
+    its segments, and per query the top_k keys of those sorted lists (with
+    one segment, its list; with several, the merge), unpacked -1e30 and id
+    0 past the live keys, whose weight is exactly 0."""
+    lists, compactions = resident_lists(keys, valid, top_k, segments)
+    vals, idx = unpack_keys(lists.flatten(1).topk(top_k, dim=1).values)
+    return (vals if return_raw else softmax_weights(vals)), idx, compactions
 
 
 for _fn in (topk_select, topk_select_chunked, topk_select_resident,

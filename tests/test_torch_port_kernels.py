@@ -34,7 +34,9 @@ from eva_vos_tpu_torch.kernels.memory_readout import (readout_geometry,
                                                       readout_staged_rows)
 from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
                                                    SORT_CAPACITY,
+                                                   iter_segments,
                                                    resident_lists,
+                                                   resident_rows,
                                                    resident_segments,
                                                    sort_keys,
                                                    sort_prune_threshold)
@@ -482,6 +484,78 @@ def test_resident_kernel_top_k(cuda, dtype, n, valid, top_k):
     assert torch.all(vals[live:] == -1e30) and torch.all(idx[live:] == 0)
     assert int(idx.min()) >= 0 and int(idx.max()) < valid
     assert 0 <= int(comp) <= n * -(-valid // 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dominant_tokens", "ties_past_capacity",
+                                  "rising_scores"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [64, 8100])
+@pytest.mark.parametrize("top_k", [16, 200])
+@pytest.mark.parametrize("raw", [False, True])
+def test_iter_kernel_is_its_plain_statement(cuda, case, dtype, n, top_k, raw):
+    """The iterative kernel (the resident walk with the row epilogue) on
+    test_resident_compactions' banks, whose scores are exact in any
+    summation order, so that the kernel admits the plain walk's keys at
+    every step: ids and raw scores equal to resident_rows' in the kernel's
+    segments (64 queries: twelve segments, merged; 8,100: one, each warp
+    writes its rows), weights to expf's rounding, and the same compactions.
+    Ids are also the exact selection's (ties to the lowest id)."""
+    qk, mk = _integer_bank(case, np.random.default_rng(3))
+    qk = torch.from_numpy(np.tile(qk, (-(-n // 64), 1))[:n])
+    mk = torch.from_numpy(mk)
+    comp = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = topk_select_iter.launches
+    w, idx = topk_select_iter(qk.to(cuda, dtype), mk.to(cuda, dtype), 3000,
+                              top_k, return_raw=raw, compactions=comp)
+    torch.cuda.synchronize()
+    assert topk_select_iter.launches == before + 1
+    segments = iter_segments(
+        n, 3000, top_k,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (segments > 1) == (n == 64)
+    ids = torch.arange(3000).expand(n, -1)
+    want_w, want_i, want_c = resident_rows(
+        sort_keys(_scores(mk, qk), ids, ids < 3000), 3000, top_k, segments,
+        return_raw=raw)
+    assert torch.equal(idx.cpu(), want_i)
+    if raw:
+        assert torch.equal(w.cpu(), want_w)
+    else:
+        torch.testing.assert_close(w.cpu(), want_w, rtol=1e-5, atol=1e-7)
+    assert int(comp) == want_c
+    np.testing.assert_array_equal(idx[:64].cpu().numpy().T,
+                                  _oracle_topk(qk[:64], mk, 3000, top_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,fill", [(8100, 1), (8100, 72), (1620, 1),
+                                    (1620, 12)])
+@pytest.mark.parametrize("top_k", [50, 256])
+def test_iter_kernel_at_card_size(cuda, dtype, n, fill, top_k):
+    """The engine's shapes: N = 8,100 (one segment: each warp writes its
+    rows) and 1,620 (several segments, merged by the row merge), banks of 1,
+    12 and 72 frames of 1,620 tokens in a 72-frame bank, top_k 50 and 256:
+    the plain version's selection up to near-ties; the weights are the
+    softmax of the raw scores."""
+    g = torch.Generator(device=cuda).manual_seed(fill + top_k)
+    qk = torch.randn((n, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((72 * FRAME_TOKENS, 64), generator=g, device=cuda).to(
+        dtype)
+    valid = fill * FRAME_TOKENS
+    segments = iter_segments(
+        n, valid, top_k,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (segments > 1) == (n == 1620)
+    vals, idx = topk_select_iter(qk, mk, valid, top_k, return_raw=True)
+    w, widx = topk_select_iter(qk, mk, valid, top_k)
+    torch.cuda.synchronize()
+    assert vals.shape == idx.shape == (n, top_k) and idx.dtype == torch.int32
+    pv, pi = topk_scores(mk, qk, top_k + 1, valid)
+    _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
+    assert torch.equal(widx, idx)
+    torch.testing.assert_close(w, softmax_weights(vals), rtol=1e-6, atol=1e-7)
 
 
 def test_build_raises_without_nvcc():
