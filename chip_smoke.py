@@ -61,7 +61,29 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    the outputs be finite, and one blocked segmentation step through the
    kernels must match the plain read; one more frame-0 interact of the
    chunked read counts the rows its readout staged against the picks;
-7. one JSON line with each kernel's launches (from the engine read that
+7. ``resize_bilinear`` on a bf16 batch of frames that shrinks: it must
+   take the antialiased filter (in fp32, cast back), and whether torch's
+   own antialiased kernel takes bf16 on the card is printed;
+8. the policy loops (``eva_vos_tpu_torch.interactions``) on phase 6's
+   engine (the default read) and video, the annotator
+   ``Annotator(FakeSAMController())``: ``initialize`` (the features)
+   timed, then oracle_mask (5 rounds, J&F), rand_rand (3clicks / mask, 5
+   rounds, J), oracle_oracle (click / bbox / 3clicks / mask, 4 rounds) and
+   upper_bound_mask (2 rounds; it interacts once for every free frame a
+   round).  Each loop prints its
+   seconds a round and its spans (``WallClock``: propagate, eval); the
+   launch counters, zeroed just before each loop, must show the default
+   read's two kernels launched at least once a round; the frames chosen
+   must be in range, the annotation times the cost model's, a frame with a
+   full mask must score 1 (or the empty-gt token) after every round and
+   never be chosen again by rand_rand; and the session's device metrics
+   must equal the host loop's (``EVAVOS_HOST_METRICS``) bit for bit.
+   Then oracle_mask's first rounds under the default and the plain
+   ('gather') read: while they annotate the same frames, every frame's J
+   must agree within PARITY_DJ_ATOL and the mean J within PARITY_J_ATOL
+   (a bf16 near-tie may flip a later choice: the first divergence is
+   printed and ends the comparison);
+9. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
    times and bound.
 
@@ -90,6 +112,20 @@ CK, CV, TOP_K = 64, 512, 50
 FILLS = (1, 12, 72)          # bank slots: one memory, one pass, a full bank
 ENGINE_ITERS = 10            # timed frame-0 interacts per read, interleaved
 FRAME30_ITERS = 3            # untraced frame-30 interacts per read
+# the policy loops on the engine's video: (loop, rounds, keyword arguments)
+POLICY_LOOPS = (
+    ("oracle_mask", 5, dict(eval_metric="j_and_f")),
+    ("rand_rand", 5, dict(annotation_types=("3clicks", "mask"),
+                          eval_metric="j")),
+    ("oracle_oracle", 4, dict(annotation_types=("click", "bbox", "3clicks",
+                                                "mask"))),
+    ("upper_bound_mask", 2, dict()))
+PARITY_ROUNDS = 3            # oracle_mask under the default and plain reads
+# while the frames agree: each frame's J (the largest |dJ| measured on the
+# H100 was 3.3e-5, so 1e-3 leaves a margin of 30) and, as an outer limit,
+# the per-round mean J
+PARITY_DJ_ATOL = 1e-3
+PARITY_J_ATOL = 2e-2
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -963,7 +999,239 @@ def engine_phase(torch, results, card):
             step_max_abs_dp=diff.max().item(), step_share_off=frac,
             foreground_share=float(np.mean(ids > 0)))
     results["engine"] = dict(precompute_s=precompute_s, paths=paths)
-    return launches
+    return launches, (base, images, masks)
+
+
+def resize_phase(torch, results):
+    """``resize_bilinear`` on a bf16 frame batch that shrinks: it must take
+    the antialiased filter (in fp32, cast back to bf16) and differ from the
+    plain bilinear kernel; also whether torch's own antialiased kernel
+    takes bf16 on this card."""
+    import torch.nn.functional as F
+
+    from eva_vos_tpu_torch.ops.resize import resize_bilinear
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.rand((2, ENGINE["h"], ENGINE["w"], 3), generator=gen,
+                   device=DEVICE).bfloat16()
+    out = (ENGINE["h"] * 8 // 15, ENGINE["w"] * 8 // 15)    # 256 x 455
+    got = resize_bilinear(x, out)
+    want = resize_bilinear(x.float(), out).bfloat16()
+    nchw = x.permute(0, 3, 1, 2)
+    plain = F.interpolate(nchw, size=out, mode="bilinear",
+                          align_corners=False).permute(0, 2, 3, 1)
+    try:
+        direct = F.interpolate(nchw, size=out, mode="bilinear",
+                               align_corners=False, antialias=True)
+        same = torch.equal(direct.permute(0, 2, 3, 1), got)
+        native = f"accepted, {'equal' if same else 'not equal'} to ours"
+    except (RuntimeError, NotImplementedError) as e:
+        native = f"refused: {str(e).splitlines()[0]}"
+    off_plain = (got.float() - plain.float()).abs().max().item()
+    print(f"[resize] bf16 {tuple(x.shape)} -> {out}: dtype {got.dtype}, "
+          f"equal to the fp32 antialiased resize cast to bf16: "
+          f"{torch.equal(got, want)}; max |d| against the plain kernel "
+          f"{off_plain:.3g}; torch's antialiased kernel in bf16: {native}",
+          flush=True)
+    if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+        fail("resize_bilinear: a bf16 shrink did not take the antialiased "
+             "filter")
+    if off_plain == 0.0:
+        fail("resize_bilinear: a bf16 shrink gave the plain kernel's output")
+    results["resize"] = dict(bf16_antialiased=True, max_abs_vs_plain=off_plain,
+                             native_bf16_antialias=native)
+
+
+def annotation_cost_ok(cost, action) -> bool:
+    """Whether a round's annotation time is one the cost model gives for
+    its action: a mask (or an empty object), clicks plus their overhead, a
+    box with or without refinement clicks."""
+    from eva_vos_tpu_torch.utils import ANNOTATION_COSTS as C
+
+    if cost == C["no_object"]:
+        return True
+    if action == "mask":
+        return cost == C["mask"]
+    if action == "bbox":
+        if cost == C["bbox"]:
+            return True
+        cost -= C["bbox"]
+    n = (cost - C["click_overhead"]) / C["click"]
+    return n >= 1 and n == int(n)
+
+
+def policy_phase(torch, results, card, engine, images, masks):
+    """The policy loops of ``eva_vos_tpu_torch.interactions`` on the engine
+    phase's full-width engine (the default read) and video, the annotator
+    ``Annotator(FakeSAMController())``: each loop's rounds timed, its spans,
+    its kernels' launches, its contract, and its device metrics against the
+    host loop; then oracle_mask's rounds under the default and the plain
+    read."""
+    import os
+
+    import numpy as np
+
+    from eva_vos_tpu_torch import interactions as I
+    from eva_vos_tpu_torch.annotator import Annotator, FakeSAMController
+    from eva_vos_tpu_torch.engine import InferenceEngine
+    from eva_vos_tpu_torch.interactions import eval as E
+    from eva_vos_tpu_torch.interactions import mask as MASK
+    from eva_vos_tpu_torch.interactions import multiple as MULTI
+
+    phase_start = time.perf_counter()
+    counters = {k: c for k, c in launch_counters().items()
+                if k in ("memory_topk", "memory_readout")}
+    t = images.shape[0]
+    sample = I.VideoSample(name="synthetic_seed0", images01=images, gt=masks)
+    start = time.perf_counter()
+    I.initialize(engine, sample)            # the features, cached for the loops
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - start
+    print(f"[policy] initialize (feature precompute) {init_s:.2f} s for "
+          f"T = {t}, {images.shape[1]}x{images.shape[2]}, on {card}",
+          flush=True)
+
+    def run(name, rounds, kwargs, eng=engine):
+        """One loop: per round its wall seconds (from the loop's start or
+        the previous round's evaluation to this round's), metrics and the
+        masked frames' scores; the counters zeroed just before it."""
+        log, stamps = [], [time.perf_counter()]
+
+        def recorded(module):
+            orig = module.eval_session_metric
+
+            def rec(session, metric="j"):
+                out = orig(session, metric)
+                stamps.append(time.perf_counter())
+                full = np.flatnonzero(session.frame_interaction_type == 1)
+                bad = [int(f) for f in full
+                       if out[3][f] not in (1.0, E.EMPTY_GT_TOKEN)]
+                if bad:
+                    fail(f"{name}: frames {bad} carry a full mask but score "
+                         f"{[out[3][f] for f in bad]}")
+                log.append(list(out[3]))
+                return out
+            return orig, rec
+
+        module = MASK if hasattr(MASK, name) else MULTI
+        orig, rec = recorded(module)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        stamps[0] = time.perf_counter()
+        module.eval_session_metric = rec
+        try:
+            if module is MASK:
+                out = getattr(I, name)(rounds=rounds, engine=eng,
+                                       sample=sample, **kwargs)
+            else:
+                out = getattr(I, name)(rounds, eng, sample,
+                                       Annotator(FakeSAMController()),
+                                       **kwargs)
+        finally:
+            module.eval_session_metric = orig
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        round_s = [b - a for a, b in zip(stamps, stamps[1:])]
+        return out, E.LAST_SESSION, log, round_s, launches
+
+    loops = {}
+    for name, rounds, kwargs in POLICY_LOOPS:
+        out, session, log, round_s, launches = run(name, rounds, kwargs)
+        n, tt = len(log), sample.num_frames
+        spans = session.timers.summary()
+        report = session.timers.report()
+        frames = session.frames_list
+        actions = (["mask"] * n if name in ("oracle_mask", "upper_bound_mask")
+                   else list(out[2]))
+        times = session.annotation_times[:n]
+        print(f"[policy {name}] T = {tt}, {n} rounds: seconds a round "
+              f"{[round(x, 3) for x in round_s]}; mean quality "
+              f"{[round(x, 4) for x in session.mu_metrics]}; frames "
+              f"{frames}; actions {actions}; times {times}; launches "
+              f"{launches}; on {card}", flush=True)
+        for line in report.splitlines():
+            print(f"[policy {name}] {line}", flush=True)
+        if n != rounds:
+            fail(f"{name}: {n} rounds evaluated, not {rounds}")
+        if min(launches.values()) < n:
+            fail(f"{name}: the default read's kernels launched {launches} "
+                 f"times in {n} rounds")
+        if not all(0 <= f < tt for f in frames):
+            fail(f"{name}: a chosen frame out of range: {frames}")
+        if not all(annotation_cost_ok(c, a) for c, a in zip(times, actions)):
+            fail(f"{name}: annotation times {times} for actions {actions}")
+        if name == "rand_rand":
+            for r in range(1, min(n + 1, len(frames))):
+                masked = {frames[j] for j in range(r) if actions[j] == "mask"}
+                if frames[r] in masked:
+                    fail(f"rand_rand: round {r} chose frame {frames[r]}, "
+                         f"which has a full mask")
+        # the device metrics against the host loop, bit for bit
+        metric = kwargs.get("eval_metric", "j")
+        _, dev_masks, _, dev_q = I.eval_session_metric(session, metric)
+        os.environ["EVAVOS_HOST_METRICS"] = "1"
+        host_start = time.perf_counter()
+        try:
+            _, host_masks, _, host_q = I.eval_session_metric(session, metric)
+        finally:
+            del os.environ["EVAVOS_HOST_METRICS"]
+        host_s = time.perf_counter() - host_start
+        same_masks = np.array_equal(dev_masks.cpu().numpy(), host_masks)
+        print(f"[policy {name}] device metrics ({metric}) against the host "
+              f"loop ({host_s:.2f} s): qualities equal {dev_q == host_q}, "
+              f"masks equal {same_masks}", flush=True)
+        if dev_q != host_q or not same_masks:
+            fail(f"{name}: the device metrics differ from the host loop")
+        loops[name] = dict(t=tt, rounds=n, round_s=round_s, spans=spans,
+                           mu=session.mu_metrics, frames=frames,
+                           actions=actions, times=times, launches=launches,
+                           qualities=log, host_metrics_s=host_s)
+
+    # read parity: oracle_mask's rounds under the default and the plain read
+    plain = InferenceEngine(engine.stcn, engine.fusion,
+                            engine.config._replace(readout_strategy="gather"),
+                            device=DEVICE)
+    per_read = {}
+    for read, eng in (("fused", engine), ("gather", plain)):
+        _, session, log, round_s, launches = run(
+            "oracle_mask", PARITY_ROUNDS, dict(eval_metric="j"), eng=eng)
+        per_read[read] = dict(frames=session.frames_list, qualities=log,
+                              mu=session.mu_metrics, round_s=round_s,
+                              launches=launches)
+    if per_read["gather"]["launches"] != dict.fromkeys(counters, 0):
+        fail(f"the plain read launched kernels: "
+             f"{per_read['gather']['launches']}")
+    fa, fb = per_read["fused"]["frames"], per_read["gather"]["frames"]
+    parity = []
+    for r in range(PARITY_ROUNDS):      # round r + 1 annotated frame fa[r]
+        qa = np.asarray(per_read["fused"]["qualities"][r])
+        qb = np.asarray(per_read["gather"]["qualities"][r])
+        mua, mub = per_read["fused"]["mu"][r], per_read["gather"]["mu"][r]
+        dj = float(np.abs(qa - qb).max())
+        print(f"[policy parity] round {r + 1}: frame {fa[r]}, mean J fused "
+              f"{mua:.5f} gather {mub:.5f}; largest per-frame |dJ| "
+              f"{dj:.3g}", flush=True)
+        if dj > PARITY_DJ_ATOL:
+            fail(f"read parity: round {r + 1} a frame's J differs by "
+                 f"{dj:.3g}")
+        if abs(mua - mub) > PARITY_J_ATOL:
+            fail(f"read parity: round {r + 1} mean J differs by "
+                 f"{abs(mua - mub):.3g}")
+        parity.append(dict(round=r + 1, frame=fa[r], d_mean_j=abs(mua - mub),
+                           max_abs_dj=dj))
+        if fa[r + 1] != fb[r + 1]:
+            f0, f1 = fa[r + 1], fb[r + 1]
+            print(f"[policy parity] round {r + 1}: the reads choose frames "
+                  f"{f0} (fused) and {f1} (gather) next; J at them: fused "
+                  f"{qa[f0]:.5f} / {qa[f1]:.5f}, gather {qb[f0]:.5f} / "
+                  f"{qb[f1]:.5f}; the comparison ends", flush=True)
+            parity[-1]["diverged"] = [f0, f1]
+            break
+    phase_s = time.perf_counter() - phase_start
+    print(f"[policy] the phase took {phase_s:.1f} s", flush=True)
+    results["policy"] = dict(init_s=init_s, t=t, loops=loops, parity=parity, parity_reads=per_read,
+                             phase_s=phase_s)
 
 
 def kernels_line(results, launches):
@@ -1034,8 +1302,10 @@ def main() -> int:
     results = {"card": card, "build_s": build_s, "hmma": hmma}
     kernel_phases(torch, results)
     entry_launches = entry_phase(torch, results)
-    launches = engine_phase(torch, results, card)
+    launches, (engine, images, masks) = engine_phase(torch, results, card)
     launches.update(entry_launches)
+    resize_phase(torch, results)
+    policy_phase(torch, results, card, engine, images, masks)
 
     kernels = kernels_line(results, launches)
     out_dir = ROOT / "chiprun_out"

@@ -2,16 +2,23 @@
 
 Same layer map as the JAX package, module for module:
 
-- ``ops``       L0 tensor primitives (pad/unpad, normalisation, aggregation,
-                resize, the plain memory read)
+- ``ops``       L0 primitives (pad/unpad, normalisation, aggregation,
+                resize, the plain memory read; masks and quality metrics,
+                on the host and batched on the device)
 - ``kernels``   hand-written CUDA kernels for ``sm_90a`` (top-k memory
                 selection, weighted value readout), each beside its plain
                 PyTorch version
 - ``models``    L1 networks as ``nn.Module`` s loading the reference
                 state-dict layout (STCN, FusionNet)
 - ``engine``    L2 propagation runtime (``InferenceEngine``)
+- ``annotator`` the simulated annotator: click and box robots and the
+                SAM-driven ``Annotator``, on the host (``FakeSAMController``
+                stands in for SAM)
+- ``interactions`` L4 policy loops: evaluation sessions and metrics, frame
+                selection, the mask loops and the multi-type loops
 - ``data``      synthetic videos
-- ``utils``     weight conversion from the JAX parameter trees
+- ``utils``     annotation costs, wall-clock spans and device traces, weight
+                conversion from the JAX parameter trees
 
 Public functions keep the JAX package's channel-last layout (``[..., H, W,
 C]`` images and features, token-major ``[M, CK]`` keys, ``[K, M, CV]``

@@ -5,15 +5,17 @@ Images are channel-last (``[..., H, W, 3]``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
+# float32, as the JAX package stores them: host code that normalises numpy
+# images with them rounds as it does there
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], dtype=np.float32)
 
 
 def im_normalize(img: torch.Tensor) -> torch.Tensor:
     """[..., 3] float image in [0, 1] -> ImageNet-normalised."""
-    # constants are rounded to float32 first, as the JAX package stores them
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32).to(img)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32).to(img)
+    mean = torch.as_tensor(IMAGENET_MEAN).to(img)
+    std = torch.as_tensor(IMAGENET_STD).to(img)
     return (img - mean) / std
