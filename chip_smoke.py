@@ -83,7 +83,31 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    must agree within PARITY_DJ_ATOL and the mean J within PARITY_J_ATOL
    (a bf16 near-tie may flip a later choice: the first divergence is
    printed and ends the comparison);
-9. one JSON line with each kernel's launches (from the engine read that
+9. the decision models and SAM (``eva_vos_tpu_torch.models``) at the
+   CLI's defaults in fp32 with seeded random weights: QNet resnet18
+   ('cat'), ActorCritic resnet18 (2 actions), SAM vit_h (1024 px, 32
+   blocks of width 1280, built on the card) and the l2_mask encoder
+   resnet50.  eva_vos (3clicks / mask, the annotator on SAM with the fused
+   select and the host warm start, its default), qnet_mask and l2_mask
+   run DECISION_ROUNDS rounds each on
+   phase 6's engine and video, with their seconds a round, ``WallClock``
+   spans (propagate, eval, annotate, choice), the agent's actions and #1 /
+   #2 launches (at least once a round).  SAM's set_image (median of 5),
+   predict, predict_select and warmstart_select (with its decodes), QNet on
+   60 frames, the agent's act and the extractor on 60 frames are timed.
+   Checks: predict_select equals predict + best_sam_mask exactly on 15
+   prompts (a click, two clicks, a box, a box and a click, a mask_input) on
+   three frames; the device warm start (``Annotator(...,
+   device_warmstart=True)``, warmstart_select) gives the host loop's
+   episode on the propagated masks and on the background
+   (WARM_BACKGROUND_THRESHOLDS) of WARM_FRAMES frames, and chains stop on
+   at least WARM_FRAMES of those frames (random weights give up on the
+   propagated masks); the device click
+   robot equals scipy's on every (pred, gt) pair it met; QNet, the
+   ActorCritic, the extractor's trunk and SAM's prompt encoder and mask
+   decoder on a vit_h embedding equal their CPU copies within CPU_RTOL of
+   the output's largest magnitude;
+10. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
    times and bound.
 
@@ -126,6 +150,18 @@ PARITY_ROUNDS = 3            # oracle_mask under the default and plain reads
 # the per-round mean J
 PARITY_DJ_ATOL = 1e-3
 PARITY_J_ATOL = 2e-2
+# the decision and SAM phase: the CLI's default models in fp32 (QNet
+# resnet18 'cat', ActorCritic resnet18 with 2 actions, SAM vit_h, the
+# l2_mask encoder resnet50), random weights from fixed seeds, on the policy
+# phase's engine and video
+SAM_PRESET = "vit_h"
+EXTRACTOR = "resnet50"
+DECISION_ROUNDS = 4
+SELECT_FRAMES = (5, 25, 45)   # frames of the fused-select check
+WARM_FRAMES = 4               # frames of the warm-start check
+WARM_BACKGROUND_THRESHOLDS = (0.8, 0.6)    # chains on their background
+# card against CPU, same weights, TF32 off: max |d| over max |value|
+CPU_RTOL = 1e-3
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -1234,6 +1270,382 @@ def policy_phase(torch, results, card, engine, images, masks):
                              phase_s=phase_s)
 
 
+def decision_sam_phase(torch, results, card, engine, images, masks):
+    """The decision models and SAM (``eva_vos_tpu_torch.models``) at full
+    width on the policy phase's engine and video: eva_vos (QNet frame
+    choice, the ActorCritic's type choice, SAM's annotations through the
+    fused branches), qnet_mask and l2_mask for DECISION_ROUNDS rounds each,
+    with their spans and #1 / #2 launches; the models' and SAM's times; and
+    the card checks: the fused select against predict + best_sam_mask, the
+    device warm start against the host loop, the device click robot
+    against scipy on every pair it met, and the models (SAM's mask decoder
+    on a real embedding) against their CPU copies."""
+    import copy
+
+    import numpy as np
+
+    from eva_vos_tpu_torch import interactions as I
+    from eva_vos_tpu_torch.annotator import Annotator
+    from eva_vos_tpu_torch.annotator import annotator as A
+    from eva_vos_tpu_torch.annotator.robots import ClickRobot
+    from eva_vos_tpu_torch.interactions import eval as E
+    from eva_vos_tpu_torch.interactions import mask as MASK
+    from eva_vos_tpu_torch.interactions import multiple as MULTI
+    from eva_vos_tpu_torch.interactions.policies import (frames_to_224,
+                                                         masks_to_224_3ch)
+    from eva_vos_tpu_torch.models import (ActorCritic, QualityNet,
+                                          make_generator, seeded_init_)
+    from eva_vos_tpu_torch.models.feature_extractors import (
+        build_feature_extractor, eval_transform)
+    from eva_vos_tpu_torch.models.sam import (PRESETS, SAMController,
+                                              SamPredictor, build_sam)
+    from eva_vos_tpu_torch.models.sam import predictor as P
+    from eva_vos_tpu_torch.ops.metrics import compute_iou
+    from eva_vos_tpu_torch.train.ppo import PPOAgent
+
+    phase_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    start = time.perf_counter()
+    qnet = seeded_init_(QualityNet(arch="resnet18", merge_strategy="cat"),
+                        make_generator(2, "cpu")).to(dev).eval()
+    net = seeded_init_(ActorCritic(out_dim=2, arch="resnet18", dropout=0.0,
+                                   embed_dim=PRESETS[SAM_PRESET]
+                                   .prompt_embed_dim),
+                       make_generator(3, "cpu"))
+    agent = PPOAgent(2, "resnet18", net.state_dict(), seed=0, device=DEVICE)
+    sam = build_sam(SAM_PRESET, seed=0, device=DEVICE)
+    predictor = SamPredictor(sam, max_points=64)
+    extract = build_feature_extractor(EXTRACTOR, allow_random=True,
+                                      device=DEVICE, seed=4)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    n_sam = sum(p.numel() for p in sam.parameters())
+    print(f"[decision] built QNet resnet18, ActorCritic resnet18, SAM "
+          f"{SAM_PRESET} ({n_sam / 1e6:.1f} M parameters, seeded on the "
+          f"card) and the {EXTRACTOR} extractor in {build_s:.2f} s",
+          flush=True)
+
+    # every click of the device robot, for the scipy check
+    robot_pairs = []
+    robot = P.click_robot_interact
+
+    def recorded_robot(pred, gt):
+        out = robot(pred, gt)
+        robot_pairs.append((pred.clone(), gt, torch.stack(out).tolist()))
+        return out
+
+    P.click_robot_interact = recorded_robot
+
+    counters = {k: c for k, c in launch_counters().items()
+                if k in ("memory_topk", "memory_readout")}
+    sample = I.VideoSample(name="synthetic_seed0", images01=images, gt=masks)
+    loops, actions_seen = {}, []
+    act = agent.act_fn()
+
+    def agent_act(emb, mask224):
+        action, value = act(emb, mask224)
+        actions_seen.append(int(action))
+        return action, value
+
+    runs = (
+        ("eva_vos", MULTI, lambda: I.eva_vos(
+            qnet.extract_features, agent_act, DECISION_ROUNDS, engine, sample,
+            Annotator(SAMController(predictor)), eval_metric="j")),
+        ("qnet_mask", MASK, lambda: I.qnet_mask(
+            qnet.extract_features, DECISION_ROUNDS, engine, sample, "j")),
+        ("l2_mask", MASK, lambda: I.l2_mask(
+            extract, DECISION_ROUNDS, engine, sample, "j")))
+    try:
+        for name, module, call in runs:
+            stamps = [0.0]
+            orig = module.eval_session_metric
+
+            def rec(session, metric="j", orig=orig, stamps=stamps):
+                out = orig(session, metric)
+                stamps.append(time.perf_counter())
+                return out
+
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            stamps[0] = time.perf_counter()
+            module.eval_session_metric = rec
+            try:
+                out = call()
+            finally:
+                module.eval_session_metric = orig
+            torch.cuda.synchronize()
+            session = E.LAST_SESSION
+            launches = {k: c.launches for k, c in counters.items()}
+            round_s = [b - a for a, b in zip(stamps, stamps[1:])]
+            n = len(round_s)
+            spans = session.timers.summary()
+            chosen = list(out[3]) if name == "eva_vos" else ["mask"] * n
+            print(f"[decision {name}] T = {sample.num_frames}, {n} rounds: "
+                  f"seconds a round {[round(x, 3) for x in round_s]}; mean J "
+                  f"{[round(x, 4) for x in session.mu_metrics]}; frames "
+                  f"{session.frames_list}; actions {chosen}; launches "
+                  f"{launches}; on {card}", flush=True)
+            for line in session.timers.report().splitlines():
+                print(f"[decision {name}] {line}", flush=True)
+            if n != DECISION_ROUNDS:
+                fail(f"{name}: {n} rounds evaluated, not {DECISION_ROUNDS}")
+            if min(launches.values()) < n:
+                fail(f"{name}: #1 / #2 launched {launches} times in {n} "
+                     f"rounds")
+            if not all(0 <= f < sample.num_frames
+                       for f in session.frames_list):
+                fail(f"{name}: a chosen frame out of range")
+            if not all(np.isfinite(session.mu_metrics)):
+                fail(f"{name}: a non-finite mean J")
+            loops[name] = dict(rounds=n, round_s=round_s, spans=spans,
+                               mu=session.mu_metrics,
+                               frames=session.frames_list, actions=chosen,
+                               times=session.annotation_times[:n],
+                               launches=launches)
+        print(f"[decision] the agent's actions (0 = 3clicks, 1 = mask): "
+              f"{actions_seen}", flush=True)
+        eva_session_frames = loops["eva_vos"]["frames"]
+        # the last session's (l2_mask's) masks: the warm starts' targets
+        _, gen, _, _ = I.eval_session_metric(E.LAST_SESSION, "j")
+        gen = gen.bool()
+
+        # times: SAM, the decision models, the extractor
+        ctrl = SAMController(predictor)
+        frame_u8 = (np.clip(images[SELECT_FRAMES[0]], 0, 1) * 255).astype(
+            np.uint8)
+
+        def set_image():
+            ctrl.reset_image()
+            ctrl.set_image(frame_u8)
+
+        set_image_ms = cuda_ms(torch, set_image, 5)
+
+        def host_ms(fn, reps=5):
+            fn()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        gt0 = masks[0, SELECT_FRAMES[0]].astype(bool)
+        click, label = ClickRobot().middle_click(gt0)
+        predict_ms = host_ms(lambda: predictor.predict(
+            point_coords=click, point_labels=label))
+        select_ms = host_ms(lambda: predictor.predict_select(
+            gt0, point_coords=click, point_labels=label))
+        pred0 = gen[SELECT_FRAMES[0]]
+        t0 = time.perf_counter()
+        ok, _, _, ws_clicks, _ = predictor.warmstart_select(pred0)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        warm_decodes = len(ws_clicks) if ok else 21
+        frames224 = frames_to_224(images, device=DEVICE)
+        masks224 = masks_to_224_3ch(gen.float(), device=DEVICE)
+        qnet_ms = cuda_ms(torch, lambda: qnet.extract_features(
+            frames224, masks224), 5)
+        emb = predictor.features.float()[None]
+        act_ms = host_ms(lambda: agent.act(emb, masks224[:1]))
+        extract_ms = host_ms(lambda: extract(images), reps=3)
+        print(f"[decision] SAM {SAM_PRESET} set_image {set_image_ms:.2f} ms "
+              f"(median of 5, a {images.shape[1]}x{images.shape[2]} frame); "
+              f"predict {predict_ms:.2f} ms; predict_select {select_ms:.2f} "
+              f"ms; warmstart_select {warm_ms:.1f} ms for {warm_decodes} "
+              f"decodes ({'stopped' if ok else 'gave up'}); QNet "
+              f"extract_features {qnet_ms:.2f} ms for {len(images)} frames; "
+              f"ActorCritic act {act_ms:.2f} ms; {EXTRACTOR} extractor "
+              f"{extract_ms:.1f} ms for {len(images)} frames (from host "
+              f"float frames); on {card}", flush=True)
+
+        # the fused select against predict + best_sam_mask, exactly; the
+        # convolutions take deterministic algorithms for the checks, so that
+        # two decodes of one prompt give the same logits
+        torch.backends.cudnn.deterministic = True
+        select_cases = []
+        for f in SELECT_FRAMES:
+            ctrl.reset_image()
+            ctrl.set_image((np.clip(images[f], 0, 1) * 255).astype(np.uint8))
+            gt = masks[0, f].astype(bool)
+            mx, my = ClickRobot().middle_click(gt)[0][0]
+            ys, xs = np.nonzero(gt)
+            box = np.array([xs.min(), ys.min(), xs.max(), ys.max()], float)
+            far = np.array([[gt.shape[1] - 1 - mx, gt.shape[0] - 1 - my]])
+            prompts = [
+                dict(point_coords=np.array([[mx, my]]),
+                     point_labels=np.array([1])),
+                dict(point_coords=np.array([[mx, my], *far]),
+                     point_labels=np.array([1, 0])),
+                dict(box=box),
+                dict(box=box, point_coords=np.array([[mx, my]]),
+                     point_labels=np.array([1]))]
+            _, _, low = predictor.predict(**prompts[0])
+            prompts.append(dict(prompts[0], mask_input=low[:1]))
+            for kw in prompts:
+                m, _, lg = predictor.predict(**kw)
+                idx, best = -1, 0.0
+                for i, g in enumerate(m):
+                    iou = compute_iou(g[None], gt[None])
+                    if iou > best:
+                        idx, best = i, iou
+                fm, fiou, fidx, flow = predictor.predict_select(gt, **kw)
+                same = (fidx == idx and fiou == best
+                        and np.array_equal(fm, m[idx])
+                        and np.array_equal(flow.cpu().numpy(), lg[idx]))
+                select_cases.append(dict(frame=f, prompt=sorted(kw), idx=idx,
+                                         iou=best, equal=bool(same)))
+                if not same:
+                    fail(f"predict_select differs from predict + "
+                         f"best_sam_mask on frame {f}, prompt {sorted(kw)}: "
+                         f"index {fidx} / {idx}, IoU {fiou} / {best}")
+        print(f"[decision] predict_select = predict + best_sam_mask exactly "
+              f"on {len(select_cases)} prompts (points, two clicks, box, "
+              f"box + click, mask_input) on frames {SELECT_FRAMES}; indices "
+              f"{[c['idx'] for c in select_cases]}", flush=True)
+
+        # the device warm start against the host loop
+        warm_frames = list(dict.fromkeys(
+            [f for f in eva_session_frames if gen[f].any()]
+            + [f for f in range(sample.num_frames) if gen[f].any()]))
+        warm_cases = []
+        annotators = (Annotator(ctrl, device_warmstart=True), Annotator(ctrl))
+        warm_frames = warm_frames[:WARM_FRAMES]
+        # the propagated masks at the annotator's threshold (random SAM
+        # weights give up there), and each frame's background, which SAM's
+        # near-full random masks match well, at lower thresholds, so that
+        # chains stop too
+        default_threshold = A.SIMILAR_IOU_THRESHOLD
+        runs = ([(f, "mask", default_threshold) for f in warm_frames]
+                + [(f, "background", t) for f in warm_frames
+                   for t in WARM_BACKGROUND_THRESHOLDS])
+        for f, target, threshold in runs:
+            ctrl.reset_image()
+            ctrl.set_image((np.clip(images[f], 0, 1) * 255).astype(np.uint8))
+            pred = (gen[f].cpu().numpy() if target == "mask"
+                    else masks[0, f] == 0)
+            eps = []
+            for annotator in annotators:
+                A.SIMILAR_IOU_THRESHOLD = threshold
+                t0 = time.perf_counter()
+                try:
+                    eps.append(annotator.create_similar_samlogits(pred))
+                finally:
+                    A.SIMILAR_IOU_THRESHOLD = default_threshold
+                torch.cuda.synchronize()
+                eps[-1] = (*eps[-1], time.perf_counter() - t0)
+            (fl, fm, fc, flab, fs), (hl, hm, hc, hlab, hs) = eps
+            same = (fl is None) == (hl is None)
+            if same and fl is not None:
+                same = (np.array_equal(fc, np.asarray(hc, np.float64))
+                        and np.array_equal(flab, np.asarray(hlab, np.int64))
+                        and np.array_equal(np.asarray(fm).squeeze(),
+                                           np.asarray(hm).squeeze())
+                        and torch.equal(torch.as_tensor(fl).cpu(),
+                                        torch.as_tensor(hl).cpu()))
+            tries = 21 if fc is None else len(fc)
+            warm_cases.append(dict(frame=f, target=target,
+                                   threshold=threshold, ok=fl is not None,
+                                   decodes=tries, device_s=fs, host_s=hs,
+                                   equal=bool(same)))
+            if not same:
+                fail(f"warmstart_select differs from the host loop on frame "
+                     f"{f} ({target}, threshold {threshold})")
+        stopped = [c for c in warm_cases if c["ok"]]
+        stop_frames = sorted({c["frame"] for c in stopped})
+        print(f"[decision] warmstart_select = the host loop on (frame, "
+              f"target, threshold) "
+              f"{[(c['frame'], c['target'], c['threshold']) for c in warm_cases]}"
+              f": {[(c['ok'], c['decodes']) for c in warm_cases]} (stopped, "
+              f"decodes); {len(stopped)} of {len(warm_cases)} chains "
+              f"stopped, on frames {stop_frames}; device / host seconds "
+              f"{[(round(c['device_s'], 3), round(c['host_s'], 3)) for c in warm_cases]}",
+              flush=True)
+        if len(warm_frames) < WARM_FRAMES:
+            fail(f"the warm-start check met {len(warm_frames)} frames")
+        if len(stop_frames) < WARM_FRAMES:
+            fail(f"warm-start chains stopped on {len(stop_frames)} frames, "
+                 f"fewer than {WARM_FRAMES}: too few full episodes compared")
+    finally:
+        P.click_robot_interact = robot
+        torch.backends.cudnn.deterministic = False
+
+    # the device click robot against scipy on every pair it met
+    scipy_robot = ClickRobot()
+    for pred, gt, got in robot_pairs:
+        clicks, labels = scipy_robot.interact(pred.cpu().numpy(),
+                                              gt.cpu().numpy())
+        if got != [*map(int, clicks[0]), int(labels[0])]:
+            fail(f"device click robot {got} != scipy {clicks[0]} "
+                 f"{labels[0]}")
+    print(f"[decision] the device click robot = scipy on all "
+          f"{len(robot_pairs)} (pred, gt) pairs it met", flush=True)
+    if not robot_pairs:
+        fail("the device click robot met no pair")
+
+    # the card against the CPU, same weights, TF32 off
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float()
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    errs = {}
+    x224, m224 = frames224[:2], masks224[:2]
+    qcpu = copy.deepcopy(qnet).cpu()
+    acpu = copy.deepcopy(agent.net).cpu()
+    ecpu = copy.deepcopy(extract.net).cpu()
+    xt = eval_transform(images[:2], device=DEVICE).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        errs["qnet_logits"] = rel(qnet(x224, m224),
+                                  qcpu(x224.cpu(), m224.cpu()))
+        errs["qnet_features"] = rel(qnet.features(x224, m224),
+                                    qcpu.features(x224.cpu(), m224.cpu()))
+        p_dev, v_dev = agent.net(emb, m224[:1])
+        p_cpu, v_cpu = acpu(emb.cpu(), m224[:1].cpu())
+        errs["actor_critic_logits"] = rel(p_dev, p_cpu)
+        errs["actor_critic_value"] = rel(v_dev, v_cpu)
+        errs[f"{EXTRACTOR}_layer4"] = rel(extract.net(xt)[-1],
+                                          ecpu(xt.cpu())[-1])
+    pe_cpu = copy.deepcopy(sam.prompt_encoder).cpu()
+    md_cpu = copy.deepcopy(sam.mask_decoder).cpu()
+    coords, labels = predictor._build_prompts(
+        np.array([[100.0, 120.0], [400.0, 300.0]]), np.array([1, 0]), None)
+    coords_t = torch.as_tensor(coords, device=dev)
+    labels_t = torch.as_tensor(labels, device=dev)
+    _, _, low = predictor.predict(point_coords=np.array([[100, 120]]),
+                                  point_labels=np.array([1]))
+    mask_in = torch.as_tensor(low[0], device=dev)
+    with torch.no_grad():
+        for has_mask in (False, True):
+            masks_dev, iou_dev = sam.decode(predictor.features, coords_t,
+                                            labels_t, mask_in, has_mask)
+            sp, va, de, ipe = pe_cpu(coords_t.cpu(), labels_t.cpu(),
+                                     mask_in.cpu(), has_mask)
+            masks_cpu, iou_cpu = md_cpu(predictor.features.cpu(), ipe, sp, va,
+                                        de)
+            tag = "mask_input" if has_mask else "points"
+            errs[f"sam_decoder_logits_{tag}"] = rel(masks_dev, masks_cpu)
+            errs[f"sam_decoder_iou_{tag}"] = rel(iou_dev, iou_cpu)
+    print(f"[decision] card vs CPU, same weights, TF32 off (max |d| / max "
+          f"|value|): { {k: f'{v:.3g}' for k, v in errs.items()} }",
+          flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= CPU_RTOL}
+    if bad:
+        fail(f"the card differs from the CPU by more than {CPU_RTOL}: {bad}")
+
+    phase_s = time.perf_counter() - phase_start
+    print(f"[decision] the phase took {phase_s:.1f} s", flush=True)
+    results["decision_sam"] = dict(
+        sam_preset=SAM_PRESET, extractor=EXTRACTOR, build_s=build_s,
+        sam_parameters=n_sam, loops=loops, agent_actions=actions_seen,
+        set_image_ms=set_image_ms, predict_ms=predict_ms,
+        predict_select_ms=select_ms, warmstart_ms=warm_ms,
+        warmstart_decodes=warm_decodes, warmstart_stopped=bool(ok),
+        qnet_extract_ms=qnet_ms, act_ms=act_ms, extractor_ms=extract_ms,
+        select_cases=select_cases, warm_cases=warm_cases,
+        robot_pairs=len(robot_pairs), cpu_rel_err=errs, phase_s=phase_s)
+
+
 def kernels_line(results, launches):
     """Each kernel's entry of the kernels JSON line: its time, plain time,
     library time and bound at a 72-slot clustered bank (N = 8100; readouts
@@ -1306,6 +1718,7 @@ def main() -> int:
     launches.update(entry_launches)
     resize_phase(torch, results)
     policy_phase(torch, results, card, engine, images, masks)
+    decision_sam_phase(torch, results, card, engine, images, masks)
 
     kernels = kernels_line(results, launches)
     out_dir = ROOT / "chiprun_out"

@@ -4,18 +4,21 @@ Same layer map as the JAX package, module for module:
 
 - ``ops``       L0 primitives (pad/unpad, normalisation, aggregation,
                 resize, the plain memory read; masks and quality metrics,
-                on the host and batched on the device)
+                on the host and batched on the device; the device click
+                robot's connected components)
 - ``kernels``   hand-written CUDA kernels for ``sm_90a`` (top-k memory
                 selection, weighted value readout), each beside its plain
                 PyTorch version
 - ``models``    L1 networks as ``nn.Module`` s loading the reference
-                state-dict layout (STCN, FusionNet)
+                state-dict layouts (STCN, FusionNet, QualityNet,
+                ActorCritic, ViT, the feature extractors, SAM)
 - ``engine``    L2 propagation runtime (``InferenceEngine``)
 - ``annotator`` the simulated annotator: click and box robots and the
-                SAM-driven ``Annotator``, on the host (``FakeSAMController``
-                stands in for SAM)
+                SAM-driven ``Annotator`` (on ``models.sam.SAMController``,
+                or ``FakeSAMController`` in tests)
 - ``interactions`` L4 policy loops: evaluation sessions and metrics, frame
                 selection, the mask loops and the multi-type loops
+- ``train``     the inference-time PPO agent
 - ``data``      synthetic videos
 - ``utils``     annotation costs, wall-clock spans and device traces, weight
                 conversion from the JAX parameter trees

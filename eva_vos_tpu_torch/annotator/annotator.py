@@ -13,8 +13,14 @@ Behavior parity target: ``annotator/annotator.py`` in the reference:
 * prompt_type 'a' = fresh prompts each time, 'b' = logits only,
   'c' = previous prompts + new prompts (default).
 
-The SAM controller is injected, so :class:`FakeSAMController` serves
-until the port has its own SAM predictor.  This is the counterpart of
+The SAM controller is injected: ``SAMController`` over the port's
+``SamPredictor`` in production, :class:`FakeSAMController` in tests.  With
+a controller that has it, the selection among SAM's masks
+(``predict_select``) runs on the device.  The warm start is the host loop
+(the scipy robot, one decode a click); ``device_warmstart=True`` takes the
+controller's ``warmstart_select`` instead, with the robot on the device,
+which is slower on the H100 (``PERF.md``).  Either gives the host path's
+episodes exactly.  This is the counterpart of
 ``eva_vos_tpu/annotator/annotator.py``.
 """
 
@@ -41,9 +47,11 @@ def denormalize_to_uint8(im) -> np.ndarray:
 
 class Annotator:
     def __init__(self, sam_controller, prompt_type: str = "c",
-                 cache_embeddings: bool = True):
+                 cache_embeddings: bool = True,
+                 device_warmstart: bool = False):
         assert prompt_type in {"a", "b", "c"}
         self.sam = sam_controller
+        self.device_warmstart = device_warmstart
         self.click_robot = ClickRobot()
         self.bbox_robot = BboxRobot()
         self.prompt_type = prompt_type
@@ -90,8 +98,17 @@ class Annotator:
                       bbox=None, mask_input=None):
         """One decode round + best-of-multimask selection vs ``target``.
 
-        Returns ``(mask [1, H, W], max_iou, logits [1, low, low])``.
+        Uses the controller's ``predict_select`` when it has one (the
+        selection on the device, the logits left there for the next
+        round).  Returns ``(mask [1, H, W], max_iou, logits [1, low, low])``
+        with the semantics of ``predict`` + :meth:`best_sam_mask`.
         """
+        ps = getattr(self.sam, "predict_select", None)
+        if ps is not None:
+            mask, max_iou, _, low = ps(
+                target, click_coords=click_coords,
+                click_labels=click_labels, bbox=bbox, mask_input=mask_input)
+            return np.asarray(mask)[None], max_iou, low[None]
         masks, _, logits = self.sam.predict(
             click_coords=click_coords, click_labels=click_labels, bbox=bbox,
             mask_input=mask_input, multimask_output=True)
@@ -103,6 +120,16 @@ class Annotator:
         pred = np.asarray(pred_mask).squeeze().astype(bool)
         if pred.sum() == 0:
             return None, None, None, None
+
+        # the chain with the click robot on the device, on request: the host
+        # loop's episode (tests/test_torch_port_sam.py::TestWarmstartChainParity)
+        if self.device_warmstart:
+            ok, logits, mask, clicks, labels = self.sam.warmstart_select(
+                pred, threshold=SIMILAR_IOU_THRESHOLD,
+                max_tries=MAX_WARMSTART_TRIES)
+            if not ok:
+                return None, None, None, None
+            return logits[None], mask[None], clicks, labels
 
         clicks, labels = self.click_robot.middle_click(pred)
         best_mask, max_iou, best_logits = self._predict_best(

@@ -5,7 +5,8 @@ Behavior parity target: ``interactions/mask.py`` — every policy shares the
 round skeleton (interact with gt on the selected frame -> propagate ->
 evaluate -> select next frame -> record 80 s, or 3 s for empty-gt frames);
 they differ only in the frame selector.  The reference repeats the skeleton
-per policy; here it is one loop parameterized by a selector callback.
+per policy; here it is one loop parameterized by a selector callback, whose
+calls are the session's ``choice`` span.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def _mask_round_loop(engine, sample, rounds, select_frame, eval_metric="j",
         mu, gen_masks, _, metric = eval_session_metric(session, eval_metric)
         session.mu_metrics.append(mu)
 
-        selected = select_frame(session, gen_masks, metric)
+        with session.timers.span("choice"):
+            selected = select_frame(session, gen_masks, metric)
         cost = (ANNOTATION_COSTS["no_object"]
                 if metric[selected] == EMPTY_GT_TOKEN
                 else ANNOTATION_COSTS["mask"])

@@ -7,7 +7,10 @@ random / RL-agent type selectors, and the four round loops
 (``oracle_oracle``, ``rand_type``, ``rand_rand``, ``eva_vos``).
 
 ``gen_masks`` lies on the engine's device; the annotator works on the host,
-so each annotated frame's mask comes to the host alone.
+so each annotated frame's mask comes to the host alone.  Besides the
+session's ``propagate`` and ``eval`` spans, a round's ``annotate`` (the
+type choice and the annotation) and ``choice`` (the next frame) are timed
+on its ``WallClock``.
 """
 
 from __future__ import annotations
@@ -141,8 +144,9 @@ def _run_multi_loop(engine, sample, rounds, annotator, eval_metric,
 
         frame = session.frames_list[-1]
         if r > 1:
-            mask_for_interaction, cost, ann_action = choose_annotation(
-                session, frame, gen_masks, r)
+            with session.timers.span("annotate"):
+                mask_for_interaction, cost, ann_action = choose_annotation(
+                    session, frame, gen_masks, r)
         else:
             mask_for_interaction = session.gt_mask(frame)
             cost = ANNOTATION_COSTS["mask"]
@@ -161,8 +165,9 @@ def _run_multi_loop(engine, sample, rounds, annotator, eval_metric,
         # choose_next_frame owns that logic and returns (selected | None,
         # fully_annotated).
         not_mask_annotated = np.where(session.frame_interaction_type != 1)[0]
-        selected, became_full = choose_next_frame(
-            session, gen_masks, metric, r, not_mask_annotated)
+        with session.timers.span("choice"):
+            selected, became_full = choose_next_frame(
+                session, gen_masks, metric, r, not_mask_annotated)
         fully_annotated = fully_annotated or became_full
         if selected is not None:
             session.frames_list.append(int(selected))
