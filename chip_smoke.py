@@ -107,7 +107,26 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    ActorCritic, the extractor's trunk and SAM's prompt encoder and mask
    decoder on a vit_h embedding equal their CPU copies within CPU_RTOL of
    the output's largest magnitude;
-10. one JSON line with each kernel's launches (from the engine read that
+10. training (``eva_vos_tpu_torch.train``, ``data``, ``cli``), in a
+   temporary directory (``EVAVOS_DATA_ROOT`` and the working directory):
+   the FQ generator's per-sample function on phase 6's video with a fresh
+   fp32 engine (``model_zoo``, random seeded weights; FQ_ROUNDS oracle
+   rounds), whose #1 and #2 (fp32) must launch every round and whose
+   blocked step must match the plain read (FP32_PROB_ATOL), its states'
+   PNGs and IoU lists, read back exactly by ``MaskQualityDB``;
+   ``train_qnet.main`` over that tree (1 epoch, batch 64), QNET_TIMED_STEPS
+   more steps timed, the checkpoint reloaded into ``QualityNet``, and one
+   step at batch 4 against a CPU copy (float64: loss and gradients; fp32:
+   the loss, and the gradients printed); the annotation generator's
+   per-sample function (ANNOT_ROUNDS rounds, phase 9's ViT-H SAM), with
+   [256, 64, 64] embeddings and #1 / #2 every round; ``train_rl_agent.main``
+   over that tree (ViT-H, 4 envs), with its checkpoints; and one
+   ``batched_rollouts`` of FLEET_ENVS envs with ``optimize``: the chunked
+   encode's seconds and peak memory, the warm start, the steps and the
+   updates timed, every reward finite, the sequential ``AnnotationEnv``
+   equal to the fleet on SEQ_CHECK_ENVS envs, and one PPO update at 4
+   samples against a CPU copy (as the QNet step);
+11. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
    times and bound.
 
@@ -162,6 +181,21 @@ WARM_FRAMES = 4               # frames of the warm-start check
 WARM_BACKGROUND_THRESHOLDS = (0.8, 0.6)    # chains on their background
 # card against CPU, same weights, TF32 off: max |d| over max |value|
 CPU_RTOL = 1e-3
+# the training phase (cuts: PERF.md §4): the FQ generator's oracle rounds
+# (the CLI runs 8) and the annotation generator's rounds (4 states), timed
+# QNet steps of 64 after the CLI's epoch, and one rollout of the CLI's
+# 40-env fleet (5 steps, 10 minibatches) with 2 PPO epochs (the CLI: 40);
+# the sequential env is held to the fleet on its first SEQ_CHECK_ENVS envs
+FQ_ROUNDS = 3
+ANNOT_ROUNDS = 5
+QNET_TIMED_STEPS = 10
+FLEET_ENVS, FLEET_STEPS, FLEET_MINI_BATCH, FLEET_PPO_EPOCHS = 40, 5, 10, 2
+SEQ_CHECK_ENVS = 3
+# one blocked step of the fp32 engine, kernels vs the plain read: fp32
+# scores in another summation order (a few ulps) and a near-tied token
+# swapped at the top-k boundary move probabilities by far less than this;
+# the share of pixels off by more must stay below PROB_FRAC
+FP32_PROB_ATOL = 1e-3
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -1270,6 +1304,18 @@ def policy_phase(torch, results, card, engine, images, masks):
                              phase_s=phase_s)
 
 
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|, both on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def grads_rel_err(net_a, net_b) -> float:
+    """The largest rel_err over the two networks' parameter gradients."""
+    return max(rel_err(pa.grad, pb.grad) for pa, pb in
+               zip(net_a.parameters(), net_b.parameters()))
+
+
 def decision_sam_phase(torch, results, card, engine, images, masks):
     """The decision models and SAM (``eva_vos_tpu_torch.models``) at full
     width on the policy phase's engine and video: eva_vos (QNet frame
@@ -1585,10 +1631,6 @@ def decision_sam_phase(torch, results, card, engine, images, masks):
         fail("the device click robot met no pair")
 
     # the card against the CPU, same weights, TF32 off
-    def rel(a, b):
-        a, b = a.float().cpu(), b.float()
-        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-
     errs = {}
     x224, m224 = frames224[:2], masks224[:2]
     qcpu = copy.deepcopy(qnet).cpu()
@@ -1596,15 +1638,15 @@ def decision_sam_phase(torch, results, card, engine, images, masks):
     ecpu = copy.deepcopy(extract.net).cpu()
     xt = eval_transform(images[:2], device=DEVICE).permute(0, 3, 1, 2)
     with torch.no_grad():
-        errs["qnet_logits"] = rel(qnet(x224, m224),
+        errs["qnet_logits"] = rel_err(qnet(x224, m224),
                                   qcpu(x224.cpu(), m224.cpu()))
-        errs["qnet_features"] = rel(qnet.features(x224, m224),
+        errs["qnet_features"] = rel_err(qnet.features(x224, m224),
                                     qcpu.features(x224.cpu(), m224.cpu()))
         p_dev, v_dev = agent.net(emb, m224[:1])
         p_cpu, v_cpu = acpu(emb.cpu(), m224[:1].cpu())
-        errs["actor_critic_logits"] = rel(p_dev, p_cpu)
-        errs["actor_critic_value"] = rel(v_dev, v_cpu)
-        errs[f"{EXTRACTOR}_layer4"] = rel(extract.net(xt)[-1],
+        errs["actor_critic_logits"] = rel_err(p_dev, p_cpu)
+        errs["actor_critic_value"] = rel_err(v_dev, v_cpu)
+        errs[f"{EXTRACTOR}_layer4"] = rel_err(extract.net(xt)[-1],
                                           ecpu(xt.cpu())[-1])
     pe_cpu = copy.deepcopy(sam.prompt_encoder).cpu()
     md_cpu = copy.deepcopy(sam.mask_decoder).cpu()
@@ -1624,8 +1666,8 @@ def decision_sam_phase(torch, results, card, engine, images, masks):
             masks_cpu, iou_cpu = md_cpu(predictor.features.cpu(), ipe, sp, va,
                                         de)
             tag = "mask_input" if has_mask else "points"
-            errs[f"sam_decoder_logits_{tag}"] = rel(masks_dev, masks_cpu)
-            errs[f"sam_decoder_iou_{tag}"] = rel(iou_dev, iou_cpu)
+            errs[f"sam_decoder_logits_{tag}"] = rel_err(masks_dev, masks_cpu)
+            errs[f"sam_decoder_iou_{tag}"] = rel_err(iou_dev, iou_cpu)
     print(f"[decision] card vs CPU, same weights, TF32 off (max |d| / max "
           f"|value|): { {k: f'{v:.3g}' for k, v in errs.items()} }",
           flush=True)
@@ -1644,6 +1686,421 @@ def decision_sam_phase(torch, results, card, engine, images, masks):
         qnet_extract_ms=qnet_ms, act_ms=act_ms, extractor_ms=extract_ms,
         select_cases=select_cases, warm_cases=warm_cases,
         robot_pairs=len(robot_pairs), cpu_rel_err=errs, phase_s=phase_s)
+    return predictor
+
+
+def training_phase(torch, results, card, images, masks, predictor):
+    """Training (``eva_vos_tpu_torch.train``, ``data``, ``cli``) at full
+    width on phase 6's video, in a temporary directory: the FQ generator's
+    per-sample function on a fresh fp32 engine (#1 / #2 in fp32, checked
+    against the plain read), train_qnet's main over its tree, the
+    annotation generator's per-sample function with phase 9's ViT-H SAM,
+    train_rl_agent's main over that tree, and one rollout and update of
+    the CLI's 40-env fleet; the QNet step and the PPO update against CPU
+    copies."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from eva_vos_tpu_torch import interactions as I
+    from eva_vos_tpu_torch.annotator import Annotator
+    from eva_vos_tpu_torch.cli import generate_annotation_dataset as gen_an
+    from eva_vos_tpu_torch.cli import generate_fq_dataset as gen_fq
+    from eva_vos_tpu_torch.cli import train_qnet, train_rl_agent
+    from eva_vos_tpu_torch.data._png import read_png, write_png
+    from eva_vos_tpu_torch.data.datasets import MaskQualityDB, write_csv_rows
+    from eva_vos_tpu_torch.engine import EngineConfig, InferenceEngine
+    from eva_vos_tpu_torch.interactions import eval as E
+    from eva_vos_tpu_torch.models import QualityNet
+    from eva_vos_tpu_torch.models.sam import SAMController
+    from eva_vos_tpu_torch.ops.resize import resize_nearest
+    from eva_vos_tpu_torch.train import QNetTrainer
+    from eva_vos_tpu_torch.utils import model_zoo
+    from eva_vos_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    phase_start = time.perf_counter()
+    counters = {k: c for k, c in launch_counters().items()
+                if k in ("memory_topk", "memory_readout")}
+    out = {}
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name) / "data"
+    os.environ["EVAVOS_DATA_ROOT"] = str(root)
+    os.chdir(tmp.name)                    # MetricsLogger writes to logs/
+    try:
+        t = images.shape[0]
+        sample = I.VideoSample(name="synthetic_0__1", images01=images,
+                               gt=masks)
+
+        # 1. the FQ generator's per-sample function on a fresh fp32 engine
+        stcn = model_zoo.load_stcn(allow_random=True, device=DEVICE)
+        fusion = model_zoo.load_fusion(allow_random=True, device=DEVICE)
+        cfg = EngineConfig(max_interactions=FQ_ROUNDS + 2)
+        engine = InferenceEngine(stcn, fusion, cfg, device=DEVICE)
+        if stcn.dtype != torch.float32 or engine.config.readout_strategy \
+                != "fused":
+            fail(f"the generator's engine: {stcn.dtype}, "
+                 f"{engine.config.readout_strategy}")
+        written = {}
+        save_masks = gen_fq.save_state_masks
+
+        def recorded(out_root, state_name, gen, device="cuda"):
+            written[state_name] = np.asarray(gen)
+            return save_masks(out_root, state_name, gen, device)
+
+        gen_fq.save_state_masks = recorded
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            rows = gen_fq.generate_sample(FQ_ROUNDS, engine, sample, "j",
+                                          root / "FQ_DB")
+        finally:
+            gen_fq.save_state_masks = save_masks
+        torch.cuda.synchronize()
+        fq_s = time.perf_counter() - start
+        fq_launches = {k: c.launches for k, c in counters.items()}
+        session = E.LAST_SESSION
+        print(f"[train fq] T = {t}, {FQ_ROUNDS} oracle rounds, fp32 engine: "
+              f"{fq_s:.2f} s ({len(rows)} states kept); launches "
+              f"{fq_launches}; on {card}", flush=True)
+        if min(fq_launches.values()) < FQ_ROUNDS:
+            fail(f"FQ generator: #1 / #2 launched {fq_launches} times in "
+                 f"{FQ_ROUNDS} rounds")
+        if not rows:
+            fail("FQ generator: no state kept")
+        for row in rows:
+            ious = eval(row["ious"])
+            pngs = sorted((root / "FQ_DB" / "Annotations" / "224"
+                           / row["state_name"]).glob("*.png"))
+            if len(ious) != t or len(pngs) != t:
+                fail(f"FQ state {row['state_name']}: {len(pngs)} PNGs, "
+                     f"{len(ious)} IoUs for T = {t}")
+        write_csv_rows(root / "FQ_DB" / "res_train.csv", rows)
+        write_csv_rows(root / "FQ_DB" / "res_val.csv", rows)
+        # MaskQualityDB reads back exactly the masks that were written
+        db = MaskQualityDB(root / "FQ_DB", root / "FQ_DB" / "res_train.csv")
+        want = {s: (resize_nearest(torch.as_tensor(g, device=DEVICE),
+                                   (224, 224), h_axis=1, w_axis=2) * 255
+                    ).to(torch.uint8).cpu().numpy()
+                for s, g in written.items()}
+        for i, (state_name, _, frame) in enumerate(db.items):
+            got = np.rint(db[i]["mask"] * 255).astype(np.uint8)
+            if not np.array_equal(got, want[state_name][frame]):
+                fail(f"MaskQualityDB: {state_name} frame {frame} differs "
+                     f"from the mask written")
+        print(f"[train fq] MaskQualityDB read back {len(db)} masks of "
+              f"{len(rows)} states exactly", flush=True)
+        # one blocked step of the fp32 engine: kernels against the plain read
+        plain = InferenceEngine(stcn, fusion,
+                                cfg._replace(readout_strategy="gather"),
+                                device=DEVICE)
+        state = session.state
+        front, tis = state.certain_count + 5, list(range(31, 36))
+        with torch.no_grad():
+            got = engine._segment_frames(session.feats, state.bank_k,
+                                         state.bank_v, front, tis)
+            ref = plain._segment_frames(session.feats, state.bank_k,
+                                        state.bank_v, front, tis)
+        diff = (got - ref).abs()
+        frac = (diff > FP32_PROB_ATOL).float().mean().item()
+        print(f"[train fq] fp32 blocked step, kernels vs plain read: "
+              f"max|dp| = {diff.max().item():.3g}, share > {FP32_PROB_ATOL}: "
+              f"{frac:.2e}", flush=True)
+        if not torch.isfinite(got).all() or frac > PROB_FRAC:
+            fail(f"the fp32 blocked step: {frac:.2e} of pixels off by > "
+                 f"{FP32_PROB_ATOL}")
+        out["fq"] = dict(rounds=FQ_ROUNDS, seconds=fq_s, states=len(rows),
+                         launches=fq_launches, db_items=len(db),
+                         step_max_abs_dp=diff.max().item(),
+                         step_share_off=frac)
+
+        # 2. QNet through its CLI, then timed steps and the card/CPU checks
+        start = time.perf_counter()
+        qstate = train_qnet.main(["--epochs", "1", "--batch-size", "64",
+                                  "--train-set", "train", "--lr", "1e-5",
+                                  "--optim", "SGD", "--arch", "resnet18",
+                                  "--out", "qnet_out", "--device", DEVICE])
+        torch.cuda.synchronize()
+        cli_s, cli_steps = time.perf_counter() - start, qstate.step
+        sd = model_zoo.load_torch_state_dict("qnet_out/qnet_ckpt")
+        loaded = QualityNet(arch="resnet18").to(DEVICE).eval()
+        loaded.load_state_dict(sd)
+        batches = db.batches(64, rng=np.random.default_rng(0))
+        batch = next(batches)
+        x = torch.as_tensor(batch["img"][:8], device=DEVICE)
+        m3 = torch.as_tensor(batch["mask"][:8], device=DEVICE)[..., None] \
+            .repeat(1, 1, 1, 3)
+        qstate.net.eval()
+        with torch.no_grad():
+            ckpt_err = rel_err(loaded(x, m3), qstate.net(x, m3))
+        if not ckpt_err <= 1e-6:
+            fail(f"the QNet checkpoint's logits differ by {ckpt_err:.3g}")
+        trainer = QNetTrainer(arch="resnet18", lr=1e-5, device=DEVICE)
+        times, losses = [], []
+        for step in range(QNET_TIMED_STEPS + 1):
+            try:
+                batch = next(batches)
+            except StopIteration:
+                batches = db.batches(64, rng=np.random.default_rng(step))
+                batch = next(batches)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            qstate, m = trainer.train_step(qstate, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - start)
+        step_ms = statistics.median(times[1:]) * 1e3
+        print(f"[train qnet] train_qnet.main (1 epoch, {cli_steps} steps of "
+              f"64) {cli_s:.2f} s; {QNET_TIMED_STEPS} steps of 64 "
+              f"at 224: median {step_ms:.1f} ms ({64e3 / step_ms:.0f} images "
+              f"a second; each image is a frame and a mask), loss "
+              f"{losses[-1]:.4f}; checkpoint reloaded, logits max rel "
+              f"{ckpt_err:.2g}; on {card}", flush=True)
+        # the card against the CPU: one step in float64 (gradients), the
+        # fp32 forward (loss), same weights and batch, dropout 0
+        qerr = {}
+        b4 = {k: v[:4] for k, v in batch.items()}
+        sd = {k: v.detach().cpu() for k, v in qstate.net.state_dict().items()}
+        for dtype in (torch.float64, torch.float32):
+            sides = []
+            for dev in (DEVICE, "cpu"):
+                tr = QNetTrainer(arch="resnet18", lr=1e-5, dropout=0.0,
+                                 device=dev)
+                st = tr.init(state_dict=sd)
+                st.net.to(dtype)
+                st, m = tr.train_step(st, b4)
+                sides.append((st.net, m["loss"]))
+            tag = "f64" if dtype == torch.float64 else "fp32"
+            qerr[f"loss_{tag}"] = rel_err(sides[0][1], sides[1][1])
+            qerr[f"update_{tag}"] = grads_rel_err(sides[0][0], sides[1][0])
+        print(f"[train qnet] card vs CPU, one step at batch 4 (max |d| / max "
+              f"|value|): { {k: f'{v:.3g}' for k, v in qerr.items()} }",
+              flush=True)
+        bad = {k: v for k, v in qerr.items()
+               if not v <= CPU_RTOL and k != "update_fp32"}
+        if bad:
+            fail(f"the QNet step differs from the CPU's: {bad}")
+        out["qnet"] = dict(cli_s=cli_s, step_ms=step_ms,
+                           images_per_s=64e3 / step_ms, losses=losses,
+                           checkpoint_rel_err=ckpt_err, cpu_rel_err=qerr)
+
+        # 3. the annotation generator's per-sample function, ViT-H SAM
+        ann = root / "MOSE" / "Annotations" / "480p" / "synthetic_0"
+        ann.mkdir(parents=True)
+        for f in range(t):
+            write_png(ann / f"{f:05d}.png", masks[0, f],
+                      palette=[[0, 0, 0], [128, 0, 0]])
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        rows = gen_an.generate_sample(
+            sample, engine, Annotator(SAMController(predictor)),
+            ANNOT_ROUNDS, ["3clicks", "mask"], "j", root / "AnnotDB")
+        torch.cuda.synchronize()
+        an_s = time.perf_counter() - start
+        an_launches = {k: c.launches for k, c in counters.items()}
+        write_csv_rows(root / "AnnotDB" / "train.csv", rows)
+        print(f"[train annot] {ANNOT_ROUNDS} rounds with ViT-H SAM: "
+              f"{an_s:.2f} s, {len(rows)} states, actions "
+              f"{[r['selected_annotation'] for r in rows]}; launches "
+              f"{an_launches}; on {card}", flush=True)
+        if len(rows) != ANNOT_ROUNDS - 1:
+            fail(f"annotation generator: {len(rows)} states")
+        if min(an_launches.values()) < ANNOT_ROUNDS:
+            fail(f"annotation generator: #1 / #2 launched {an_launches} times "
+                 f"in {ANNOT_ROUNDS} rounds")
+        for row in rows:
+            emb = np.load(root / "AnnotDB" / "SAM_Embeddings"
+                          / f"{row['id']}.npy")
+            if emb.shape != (256, 64, 64) or not np.isfinite(emb).all():
+                fail(f"state {row['id']}: embedding {emb.shape}")
+            if read_png(root / "AnnotDB" / "Images" / f"{row['id']}.png"
+                        )[0].shape != images.shape[1:]:
+                fail(f"state {row['id']}: image size")
+        out["annot"] = dict(rounds=ANNOT_ROUNDS, seconds=an_s,
+                            states=len(rows), launches=an_launches)
+
+        # 4. PPO through its CLI
+        start = time.perf_counter()
+        train_rl_agent.main(["--sam", "vit_h", "--allow-random",
+                             "--num-envs", "4", "--mini-batch", "2",
+                             "--num-steps", "5", "--rollouts", "4",
+                             "--ppo-epochs", "4", "--imset", "train",
+                             "--out", "rl_out", "--device", DEVICE])
+        torch.cuda.synchronize()
+        rl_s = time.perf_counter() - start
+        _, meta = restore_checkpoint("rl_out/_checkpoint")
+        print(f"[train ppo] train_rl_agent.main (4 envs, 5 steps, 4 PPO "
+              f"epochs): {rl_s:.2f} s; iters {meta['iters']}, max reward "
+              f"{meta['max_reward']:.4g}", flush=True)
+        if not Path("rl_out/model").exists() or meta["iters"] < 4:
+            fail(f"train_rl_agent: checkpoints {meta}")
+        out["ppo_cli"] = dict(seconds=rl_s, **meta)
+
+        # 5. the CLI's fleet size: one rollout of 40 envs and an update
+        out["fleet"] = fleet_check(torch, card, predictor, root)
+    finally:
+        os.chdir(cwd)
+        del os.environ["EVAVOS_DATA_ROOT"]
+        tmp.cleanup()
+    phase_s = time.perf_counter() - phase_start
+    print(f"[train] the phase took {phase_s:.1f} s", flush=True)
+    results["training"] = dict(out, phase_s=phase_s)
+
+
+def fleet_check(torch, card, predictor, root):
+    """One ``batched_rollouts`` of the CLI's fleet (FLEET_ENVS envs over the
+    annotation tree's states, cycled) and ``optimize``, timed; the vector
+    env against the sequential one on SEQ_CHECK_ENVS envs; one PPO update
+    against a CPU copy."""
+    import numpy as np
+
+    from eva_vos_tpu_torch.data.datasets import AnnotTypeDB
+    from eva_vos_tpu_torch.models.sam import SAMController
+    from eva_vos_tpu_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
+    from eva_vos_tpu_torch.train import ppo
+    from eva_vos_tpu_torch.train.ppo import vector_env as VE
+
+    db = AnnotTypeDB(root / "AnnotDB", "train")
+    items = [db[i % len(db)] for i in range(FLEET_ENVS)]
+    imgs = [(it["img"] - IMAGENET_MEAN) / IMAGENET_STD for it in items]
+    gts = [it["gt_mask"] for it in items]
+    inits = [it["mask"] for it in items]
+
+    # the encode alone: a chunk of one image against a chunk of four
+    u8 = [(np.clip(it["img"], 0, 1) * 255).astype(np.uint8)
+          for it in items[:4]]
+    chunks = {}
+    for chunk in (1, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        predictor.encode_images(u8, chunk=chunk)
+        torch.cuda.synchronize()
+        chunks[chunk] = dict(seconds=time.perf_counter() - start,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[train fleet] ViT-H encode of 4 frames: "
+          f"{ {k: {n: round(x, 3) for n, x in v.items()} for k, v in chunks.items()} } "
+          f"(chunk: seconds, peak GB)", flush=True)
+
+    trainer = ppo.PPOTrainer(action_space=2, ppo_epochs=FLEET_PPO_EPOCHS,
+                             clip_param=0.2, value_loss_coef=0.5,
+                             entropy_coef=1e-4, target_kl_div=0.02, lr=1e-5,
+                             optim_str="Adam", arch="resnet18", dropout=0.5,
+                             device=DEVICE)
+    storage = ppo.RolloutStorage(num_envs=FLEET_ENVS, num_steps=FLEET_STEPS,
+                                 num_mini_batch=FLEET_MINI_BATCH,
+                                 device=DEVICE)
+    timing = dict(encode=[], step=[], update=[])
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timing[name].append(time.perf_counter() - start)
+            return res
+        return call
+
+    encode, step = predictor.encode_images, VE.VectorizedAnnotationEnvs.step
+    update = trainer._update
+    predictor.encode_images = timed("encode", encode)
+    VE.VectorizedAnnotationEnvs.step = timed("step", step)
+    trainer._update = timed("update", update)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    try:
+        envs = ppo.batched_rollouts(trainer, SAMController(predictor), imgs,
+                                    gts, inits, storage, FLEET_STEPS, 0.95,
+                                    "gae", np.random.default_rng(0))
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - start
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        loss = trainer.optimize(storage, np.random.default_rng(1))
+    finally:
+        predictor.encode_images = encode
+        VE.VectorizedAnnotationEnvs.step = step
+        trainer._update = update
+    warm_s = rollout_s - sum(timing["encode"]) - sum(timing["step"])
+    valid = ~storage.paddings
+    rewards = storage.rewards[valid]
+    update_ms = statistics.median(timing["update"]) * 1e3
+    print(f"[train fleet] {FLEET_ENVS} envs: encode {sum(timing['encode']):.2f} s "
+          f"(peak {peak_gb:.1f} GB allocated over the rollout), warm start "
+          f"and the agent about {warm_s:.2f} s with {envs.warm_decodes} "
+          f"decodes, steps {[round(x, 3) for x in timing['step']]} s; "
+          f"{int(valid.sum())} valid steps, actions "
+          f"{np.bincount(storage.actions[valid], minlength=2).tolist()}; "
+          f"optimize ({FLEET_PPO_EPOCHS} epochs): "
+          f"{len(timing['update'])} updates, median {update_ms:.1f} ms, loss "
+          f"{loss:.4g}; on {card}", flush=True)
+    if not np.isfinite(rewards).all() or not np.isfinite(loss):
+        fail("the fleet: a non-finite reward or loss")
+    if not valid.any(axis=1).all():
+        fail("the fleet: an env took no step")
+
+    # the vector env against the sequential one, the fleet's actions, ViT-H
+    for e in range(SEQ_CHECK_ENVS):
+        env = ppo.AnnotationEnv(SAMController(predictor), imgs[e], gts[e],
+                                inits[e], FLEET_STEPS, device=DEVICE)
+        steps = int(valid[e].sum())
+        seq_rewards = [env.step(int(a))[0]
+                       for a in storage.actions[e, :steps]]
+        vs = envs.env_state[e]
+        if not (np.allclose(seq_rewards, storage.rewards[e, :steps],
+                            rtol=1e-6, atol=1e-9)
+                and env.annotation_cost == vs["cost"]
+                and env.iou == vs["iou"] and env.init_iou == vs["init_iou"]
+                and np.array_equal(env.sam_mask, vs["sam_mask"])):
+            fail(f"env {e}: the sequential env gives rewards {seq_rewards}, "
+                 f"cost {env.annotation_cost}, IoU {env.iou}; the fleet "
+                 f"{storage.rewards[e, :steps].tolist()}, {vs['cost']}, "
+                 f"{vs['iou']}")
+    print(f"[train fleet] the sequential env = the fleet on envs "
+          f"0-{SEQ_CHECK_ENVS - 1} (rewards, cost, IoU, mask), ViT-H",
+          flush=True)
+
+    # one PPO update on the card against a CPU copy: float64 (loss, kl,
+    # gradients) and the fp32 loss; a minibatch of 4, dropout 0
+    batch = next(storage.data_generator(np.random.default_rng(2)))
+    batch = {k: v[:4] for k, v in batch.items()}
+    sd = {k: v.detach().cpu() for k, v in trainer.net.state_dict().items()}
+    perr = {}
+    for dtype in (torch.float64, torch.float32):
+        sides = []
+        for dev in (DEVICE, "cpu"):
+            tr = ppo.PPOTrainer(action_space=2, ppo_epochs=1, clip_param=0.2,
+                                value_loss_coef=0.5, entropy_coef=1e-4,
+                                target_kl_div=None, lr=1e-5, optim_str="Adam",
+                                arch="resnet18", dropout=0.0, device=dev)
+            tr.net.load_state_dict(sd)
+            tr.net.to(dtype)
+            b = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+                 for k, v in batch.items()}
+            sides.append((tr.net, *tr._update(b)))
+        tag = "f64" if dtype == torch.float64 else "fp32"
+        perr[f"loss_{tag}"] = rel_err(sides[0][1], sides[1][1])
+        perr[f"kl_{tag}"] = abs(sides[0][2].item() - sides[1][2].item())
+        perr[f"update_{tag}"] = grads_rel_err(sides[0][0], sides[1][0])
+    print(f"[train fleet] card vs CPU, one PPO update on 4 samples (max |d| "
+          f"/ max |value|; kl: |d|): "
+          f"{ {k: f'{v:.3g}' for k, v in perr.items()} }", flush=True)
+    bad = {k: v for k, v in perr.items()
+           if not v <= CPU_RTOL and k != "update_fp32"}
+    if bad:
+        fail(f"the PPO update differs from the CPU's: {bad}")
+    return dict(envs=FLEET_ENVS, encode_chunks=chunks,
+                encode_s=sum(timing["encode"]), peak_gb=peak_gb,
+                warm_s=warm_s, warm_decodes=envs.warm_decodes,
+                step_s=timing["step"], rollout_s=rollout_s,
+                update_ms=update_ms, updates=len(timing["update"]),
+                loss=loss, valid_steps=int(valid.sum()),
+                mean_reward=float(rewards.mean()), cpu_rel_err=perr)
 
 
 def kernels_line(results, launches):
@@ -1718,7 +2175,9 @@ def main() -> int:
     launches.update(entry_launches)
     resize_phase(torch, results)
     policy_phase(torch, results, card, engine, images, masks)
-    decision_sam_phase(torch, results, card, engine, images, masks)
+    predictor = decision_sam_phase(torch, results, card, engine, images,
+                                   masks)
+    training_phase(torch, results, card, images, masks, predictor)
 
     kernels = kernels_line(results, launches)
     out_dir = ROOT / "chiprun_out"

@@ -18,10 +18,15 @@ Same layer map as the JAX package, module for module:
                 or ``FakeSAMController`` in tests)
 - ``interactions`` L4 policy loops: evaluation sessions and metrics, frame
                 selection, the mask loops and the multi-type loops
-- ``train``     the inference-time PPO agent
-- ``data``      synthetic videos
+- ``train``     the QNet trainer, and PPO: storage, rollouts, the annotation
+                environments (one, or a fleet on batched SAM), the
+                trainer and the inference-time agent
+- ``data``      synthetic videos, the datasets over the on-disk trees, a
+                PNG codec
 - ``utils``     annotation costs, wall-clock spans and device traces, weight
-                conversion from the JAX parameter trees
+                conversion from the JAX parameter trees, config, logging,
+                checkpoints and the model zoo
+- ``cli``       the two dataset generators and the two trainers
 
 Public functions keep the JAX package's channel-last layout (``[..., H, W,
 C]`` images and features, token-major ``[M, CK]`` keys, ``[K, M, CV]``

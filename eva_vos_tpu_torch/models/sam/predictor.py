@@ -42,6 +42,11 @@ MASK_THRESHOLD = 0.0
 # cross product, scaled by it, stays within int64
 _INV_SMOOTH = round(1 / SMOOTH)
 MAX_SELECT_PIXELS = 3_000_000
+# images a pass of the batched encode: ViT-H's global attention holds three
+# [16, 4096, 4096] fp32 tensors an image (scores, rel-pos sum, softmax: 3.2
+# GB), so a 40-image fleet in one pass would need ~130 GB.  ViT has no batch
+# statistics, and with one image a pass each embedding is set_image's.
+ENCODE_CHUNK = 1
 
 
 def get_preprocess_shape(oldh: int, oldw: int, long_side: int):
@@ -284,12 +289,14 @@ class SamPredictor:
     # ------------------------------------------------------------------
     # batched paths (the vectorised PPO environments)
     # ------------------------------------------------------------------
-    def encode_images(self, images) -> torch.Tensor:
-        """N uint8 RGB images of one size -> features [N, S, S, 256]."""
+    def encode_images(self, images, chunk: int = ENCODE_CHUNK) -> torch.Tensor:
+        """N uint8 RGB images of one size -> features [N, S, S, 256],
+        encoded ``chunk`` images a pass."""
         sizes = {im.shape[:2] for im in images}
         assert len(sizes) == 1, "batched encode requires equal image sizes"
         x = torch.as_tensor(np.stack(images), device=self.device)
-        return self.sam.encode_image(self._preprocess(x))
+        return torch.cat([self.sam.encode_image(self._preprocess(x[i:i + chunk]))
+                          for i in range(0, len(x), chunk)])
 
     def predict_batch(self, features, original_size, prompts,
                       multimask_output: bool = True):
