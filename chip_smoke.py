@@ -126,7 +126,25 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    updates timed, every reward finite, the sequential ``AnnotationEnv``
    equal to the fleet on SEQ_CHECK_ENVS envs, and one PPO update at 4
    samples against a CPU copy (as the QNet step);
-11. one JSON line with each kernel's launches (from the engine read that
+11. the eval CLI (``eva_vos_tpu_torch.cli.eval_annotation_method``), in a
+   temporary directory: phase 6's video written as a one-video DAVIS_17
+   tree (PNG bytes under the frames' ``.jpg`` names, palette annotations,
+   ``ImageSets/2017/val.txt``; ``EVAVOS_DATA_ROOT``, and an empty
+   ``EVAVOS_WEIGHTS_ROOT``), and the CLI's ``main`` called in-process with
+   random weights: (a) oracle_mask (CLI_MASK_ROUNDS rounds, fp32, J&F),
+   whose CSV must equal a direct ``oracle_mask`` call on an engine from
+   ``model_zoo`` over the sample read back (annotation times exactly,
+   ``mu_metric`` within CLI_MU_ATOL, cudnn deterministic), with the frames
+   read back equal to the frames written; (b) eva_vos with ViT-H SAM
+   (CLI_EVA_ROUNDS, fp32): the JAX CLI's columns, a row a round, the
+   RANDOM_WEIGHTS marker, 60 per-frame metrics a row; (c) rand_rand on the
+   fake SAM in bf16 with ``--profile-dir``: the trace names #1's and #2's
+   kernels; (d) (a) with ``--resume``: the file unchanged byte for byte;
+   (e) (a) with ``--multihost`` (one process): the same file name and
+   rows; (f) ``vis.read_exp`` of (a) and (b): finite curves.  #1 and #2
+   must launch at least once a round of every run.  Each run prints its
+   build seconds, seconds a round, ``WallClock`` spans and launches;
+12. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
    times and bound.
 
@@ -196,6 +214,15 @@ SEQ_CHECK_ENVS = 3
 # swapped at the top-k boundary move probabilities by far less than this;
 # the share of pixels off by more must stay below PROB_FRAC
 FP32_PROB_ATOL = 1e-3
+# the eval CLI phase (cuts: PERF.md §4): its 60 rounds cut to 5 (oracle_mask,
+# fp32, also resumed and under --multihost), 4 (eva_vos with ViT-H, fp32) and
+# 3 (rand_rand on the fake SAM, bf16, traced); the CSV's oracle_mask rows
+# against a direct call with cudnn deterministic
+CLI_MASK_ROUNDS, CLI_EVA_ROUNDS, CLI_RAND_ROUNDS = 5, 4, 3
+CLI_MU_ATOL = 1e-4
+CLI_EVA_COLUMNS = ["video", "mu_metric", "annotation_time", "round",
+                   "weights", "rl_values", "round_metrics",
+                   "annotated_frames", "annotation_actions"]
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -2103,6 +2130,265 @@ def fleet_check(torch, card, predictor, root):
                 mean_reward=float(rewards.mean()), cpu_rel_err=perr)
 
 
+def write_davis_tree(root: Path, images, masks):
+    """The video as a one-video DAVIS_17 tree under ``root``: frames as
+    RGB PNG bytes under ``JPEGImages/480p/v0/NNNNN.jpg`` (the port's codec;
+    the readers go by the bytes), object ids as palette PNGs, and
+    ``ImageSets/2017/val.txt``.  Returns the uint8 frames written."""
+    import numpy as np
+
+    from eva_vos_tpu_torch.data._png import write_png
+
+    db = root / "DAVIS_17"
+    frames = np.rint(images * 255).astype(np.uint8)
+    for sub in ("JPEGImages", "Annotations"):
+        (db / sub / "480p" / "v0").mkdir(parents=True)
+    for f in range(frames.shape[0]):
+        write_png(db / "JPEGImages" / "480p" / "v0" / f"{f:05d}.jpg",
+                  frames[f])
+        write_png(db / "Annotations" / "480p" / "v0" / f"{f:05d}.png",
+                  masks[0, f].astype(np.uint8),
+                  palette=[[0, 0, 0], [128, 0, 0]])
+    (db / "ImageSets" / "2017").mkdir(parents=True)
+    (db / "ImageSets" / "2017" / "val.txt").write_text("v0\n")
+    return frames
+
+
+def cli_phase(torch, results, card, images, masks):
+    """The eval CLI's ``main`` on phase 6's video written as a DAVIS_17
+    tree: oracle_mask against a direct call, eva_vos with ViT-H, rand_rand
+    in bf16 traced, ``--resume``, ``--multihost`` and ``vis.read_exp``;
+    #1 / #2 launches every round."""
+    import ast
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from eva_vos_tpu_torch import interactions as I
+    from eva_vos_tpu_torch import vis
+    from eva_vos_tpu_torch.cli import eval_annotation_method as cli
+    from eva_vos_tpu_torch.data.datasets import AnnotationDataset
+    from eva_vos_tpu_torch.engine import EngineConfig, InferenceEngine
+    from eva_vos_tpu_torch.interactions import eval as E
+    from eva_vos_tpu_torch.interactions import mask as MASK
+    from eva_vos_tpu_torch.interactions import multiple as MULTI
+    from eva_vos_tpu_torch.utils import model_zoo
+    from eva_vos_tpu_torch.utils.table import read_columns
+
+    phase_start = time.perf_counter()
+    counters = {k: c for k, c in launch_counters().items()
+                if k in ("memory_topk", "memory_readout")}
+    out = {}
+    env_keys = ("EVAVOS_DATA_ROOT", "EVAVOS_WEIGHTS_ROOT",
+                "EVAVOS_NUM_PROCESSES")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    deterministic = torch.backends.cudnn.deterministic
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    saved = dict(build=cli.build_models, dispatch=cli.dispatch,
+                 mask=MASK.eval_session_metric,
+                 multi=MULTI.eval_session_metric)
+    try:
+        torch.backends.cudnn.deterministic = True
+        os.environ["EVAVOS_DATA_ROOT"] = str(root / "data")
+        os.environ["EVAVOS_WEIGHTS_ROOT"] = str(root / "weights")
+        os.environ.pop("EVAVOS_NUM_PROCESSES", None)
+        (root / "weights").mkdir()
+        t0 = time.perf_counter()
+        frames = write_davis_tree(root / "data", images, masks)
+        print(f"[cli] a DAVIS_17 tree of T = {frames.shape[0]}, "
+              f"{frames.shape[1]}x{frames.shape[2]} written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # the CLI's build and each round timed: build_models, and the
+        # rounds' evaluations stamped from dispatch's start
+        timing = {}
+
+        def build(args):
+            start = time.perf_counter()
+            models = saved["build"](args)
+            torch.cuda.synchronize()
+            timing["build_s"] = time.perf_counter() - start
+            return models
+
+        def dispatch(*args):
+            timing["stamps"] = [time.perf_counter()]
+            result = saved["dispatch"](*args)
+            torch.cuda.synchronize()
+            return result
+
+        def stamped(orig):
+            def rec(session, metric="j"):
+                result = orig(session, metric)
+                timing["stamps"].append(time.perf_counter())
+                return result
+            return rec
+
+        cli.build_models, cli.dispatch = build, dispatch
+        MASK.eval_session_metric = stamped(saved["mask"])
+        MULTI.eval_session_metric = stamped(saved["multi"])
+
+        def run(tag, argv, rounds):
+            """``main(argv)`` with the counters zeroed just before it and
+            read just after; #1 / #2 at least once a round."""
+            timing.clear()
+            timing["stamps"] = []
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            path = cli.main(argv + ["--device", DEVICE])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - start
+            launches = {k: c.launches for k, c in counters.items()}
+            stamps = timing["stamps"]
+            round_s = [b - a for a, b in zip(stamps, stamps[1:])]
+            spans = (E.LAST_SESSION.timers.summary() if rounds else {})
+            print(f"[cli {tag}] {' '.join(argv[:4])}: main {total_s:.2f} s "
+                  f"(build {timing.get('build_s', 0.0):.2f} s); seconds a "
+                  f"round {[round(x, 3) for x in round_s]}; launches "
+                  f"{launches}; on {card}", flush=True)
+            for name, span in spans.items():
+                print(f"[cli {tag}] span {name}: {span}", flush=True)
+            if len(round_s) != rounds:
+                fail(f"cli {tag}: {len(round_s)} rounds, not {rounds}")
+            if rounds and min(launches.values()) < rounds:
+                fail(f"cli {tag}: #1 / #2 launched {launches} times in "
+                     f"{rounds} rounds")
+            out[tag] = dict(argv=argv, main_s=total_s,
+                            build_s=timing.get("build_s"), round_s=round_s,
+                            spans=spans, launches=launches)
+            return Path(path)
+
+        db = ["--db", "DAVIS_17", "--allow-random"]
+        mask_argv = ["--policy", "oracle_mask", "--rounds",
+                     str(CLI_MASK_ROUNDS)] + db
+
+        # (a) oracle_mask, fp32, against a direct call on the sample
+        path_a = run("a", mask_argv + ["--out-dir", str(root / "exp_a"),
+                                       "--timers"], CLI_MASK_ROUNDS)
+        table_a = read_columns(path_a)
+        ds = AnnotationDataset(root / "data" / "DAVIS_17",
+                               root / "data" / "DAVIS_17" / "ImageSets"
+                               / "2017" / "val.txt")
+        sample = ds[0]
+        read_back = np.rint(sample.images01 * 255).astype(np.uint8)
+        if not np.array_equal(read_back, frames):
+            fail("cli: the frames read back differ from the frames written")
+        if not np.array_equal(sample.gt, masks[:1]):
+            fail("cli: the masks read back differ from the masks written")
+        stcn = model_zoo.load_stcn(allow_random=True, device=DEVICE)
+        fusion = model_zoo.load_fusion(allow_random=True, device=DEVICE)
+        engine = InferenceEngine(stcn, fusion, EngineConfig(
+            max_interactions=CLI_MASK_ROUNDS + 2), device=DEVICE)
+        mus, times = I.oracle_mask(CLI_MASK_ROUNDS, engine, sample,
+                                   "j_and_f")
+        direct_frames = E.LAST_SESSION.frames_list
+        d_mu = max(abs(a - b) for a, b in zip(table_a["mu_metric"], mus))
+        print(f"[cli a] the CSV against the direct oracle_mask call: frames "
+              f"{direct_frames}, times {table_a['annotation_time']} / "
+              f"{times}, largest |d mu_metric| {d_mu:.3g}; the frames read "
+              f"back equal the frames written", flush=True)
+        if [float(x) for x in table_a["annotation_time"]] != \
+                [float(x) for x in times]:
+            fail(f"cli a: annotation times {table_a['annotation_time']}, "
+                 f"direct {times}")
+        if len(mus) != len(table_a["mu_metric"]) or d_mu > CLI_MU_ATOL:
+            fail(f"cli a: mu_metric {table_a['mu_metric']}, direct {mus}")
+        out["a"].update(direct_frames=direct_frames, direct_mu=mus,
+                        d_mu=d_mu, mu=table_a["mu_metric"])
+        del engine, stcn, fusion
+
+        # (b) eva_vos with ViT-H SAM, fp32
+        path_b = run("b", ["--policy", "eva_vos", "--rounds",
+                           str(CLI_EVA_ROUNDS)] + db
+                     + ["--out-dir", str(root / "exp_b")], CLI_EVA_ROUNDS)
+        table_b = read_columns(path_b)
+        per_frame = [ast.literal_eval(m) for m in table_b["round_metrics"]]
+        print(f"[cli b] columns {list(table_b)}; actions "
+              f"{table_b['annotation_actions']}; frames "
+              f"{table_b['annotated_frames']}; rl_values "
+              f"{table_b['rl_values']}", flush=True)
+        if list(table_b) != CLI_EVA_COLUMNS:
+            fail(f"cli b: columns {list(table_b)}")
+        if len(table_b["video"]) != CLI_EVA_ROUNDS or \
+                set(table_b["weights"]) != {"RANDOM_WEIGHTS"}:
+            fail(f"cli b: rows {table_b['video']} {table_b['weights']}")
+        if any(len(m) != frames.shape[0] or not all(
+                isinstance(x, (int, float)) for x in m) for m in per_frame):
+            fail("cli b: a round_metrics cell is not one number a frame")
+        out["b"].update(actions=table_b["annotation_actions"],
+                        mu=table_b["mu_metric"])
+
+        # (c) rand_rand on the fake SAM in bf16, traced
+        trace_dir = root / "trace"
+        run("c", ["--policy", "rand_rand", "--rounds", str(CLI_RAND_ROUNDS)]
+            + db + ["--fake-sam", "--dtype", "bf16", "--types", "3clicks",
+                    "mask", "--profile-dir", str(trace_dir), "--out-dir",
+                    str(root / "exp_c")], CLI_RAND_ROUNDS)
+        traces = sorted(trace_dir.glob("*.json"))
+        text = "".join(p.read_text() for p in traces)
+        named = {k: k in text for k in ("topk_prune_block_kernel",
+                                        "readout_kernel")}
+        print(f"[cli c] trace {[p.name for p in traces]} "
+              f"({sum(p.stat().st_size for p in traces)} bytes) names "
+              f"{named}", flush=True)
+        if not traces or not all(named.values()):
+            fail(f"cli c: the trace {traces} names {named}")
+        out["c"]["trace_names"] = named
+
+        # (d) (a) with --resume: no row added, the file unchanged
+        before = path_a.read_bytes()
+        path_d = run("d", mask_argv + ["--out-dir", str(root / "exp_a"),
+                                       "--resume"], 0)
+        same = path_d == path_a and path_d.read_bytes() == before
+        print(f"[cli d] --resume: the file unchanged {same}", flush=True)
+        if not same:
+            fail("cli d: --resume changed the CSV")
+
+        # (e) (a) with --multihost, one process: the whole range
+        path_e = run("e", mask_argv + ["--out-dir", str(root / "exp_e"),
+                                       "--multihost"], CLI_MASK_ROUNDS)
+        table_e = read_columns(path_e)
+        d_mu_e = max(abs(a - b) for a, b in zip(table_e["mu_metric"],
+                                                table_a["mu_metric"]))
+        print(f"[cli e] --multihost: {path_e.name}, "
+              f"{len(table_e['video'])} rows, byte-identical to (a) "
+              f"{path_e.read_bytes() == before}, largest |d mu_metric| "
+              f"{d_mu_e:.3g}", flush=True)
+        if path_e.name != path_a.name or d_mu_e > CLI_MU_ATOL or any(
+                table_e[k] != table_a[k] for k in table_a
+                if k != "mu_metric"):
+            fail(f"cli e: {path_e.name} {table_e} against (a)'s {table_a}")
+
+        # (f) the vis readers on (a)'s and (b)'s CSVs
+        curves = {}
+        for tag, path in (("a", path_a), ("b", path_b)):
+            hours, quality = vis.read_exp(str(path))
+            curves[tag] = dict(hours=[float(x) for x in hours],
+                               quality=[float(x) for x in quality])
+            if not (np.all(np.isfinite(hours))
+                    and np.all(np.isfinite(quality))):
+                fail(f"cli f: read_exp({path.name}) {curves[tag]}")
+        print(f"[cli f] read_exp: {curves}", flush=True)
+        out["read_exp"] = curves
+    finally:
+        cli.build_models, cli.dispatch = saved["build"], saved["dispatch"]
+        MASK.eval_session_metric = saved["mask"]
+        MULTI.eval_session_metric = saved["multi"]
+        torch.backends.cudnn.deterministic = deterministic
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+    phase_s = time.perf_counter() - phase_start
+    print(f"[cli] the phase took {phase_s:.1f} s", flush=True)
+    results["cli"] = dict(out, phase_s=phase_s)
+
+
 def kernels_line(results, launches):
     """Each kernel's entry of the kernels JSON line: its time, plain time,
     library time and bound at a 72-slot clustered bank (N = 8100; readouts
@@ -2178,6 +2464,7 @@ def main() -> int:
     predictor = decision_sam_phase(torch, results, card, engine, images,
                                    masks)
     training_phase(torch, results, card, images, masks, predictor)
+    cli_phase(torch, results, card, images, masks)
 
     kernels = kernels_line(results, launches)
     out_dir = ROOT / "chiprun_out"

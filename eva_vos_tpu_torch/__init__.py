@@ -25,8 +25,11 @@ Same layer map as the JAX package, module for module:
                 PNG codec
 - ``utils``     annotation costs, wall-clock spans and device traces, weight
                 conversion from the JAX parameter trees, config, logging,
-                checkpoints and the model zoo
-- ``cli``       the two dataset generators and the two trainers
+                checkpoints, the model zoo and the CSV tables
+- ``parallel``  the eval CLI's process group and per-process shards
+- ``vis``       the experiment CSVs' curves and ranking, plots, overlays
+- ``cli``       the main experiment CLI, the two dataset generators, the
+                two trainers and the two download CLIs
 
 Public functions keep the JAX package's channel-last layout (``[..., H, W,
 C]`` images and features, token-major ``[M, CK]`` keys, ``[K, M, CV]``

@@ -15,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPES = {0: ("L", 1), 2: ("RGB", 3), 3: ("P", 1)}
 
 
@@ -43,7 +43,7 @@ def write_png(path, array: np.ndarray, palette=None):
     h, w = a.shape[:2]
     rows = np.zeros((h, 1 + a[0].size), np.uint8)     # filter byte 0
     rows[:, 1:] = a.reshape(h, -1)
-    out = [_SIGNATURE,
+    out = [PNG_SIGNATURE,
            _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
                                        0, 0, 0))]
     if palette is not None:
@@ -100,9 +100,9 @@ def read_png(path):
     """-> (pixels uint8 [H, W] or [H, W, 3], mode 'L' / 'P' / 'RGB',
     palette [n, 3] uint8 or None)."""
     blob = Path(path).read_bytes()
-    if not blob.startswith(_SIGNATURE):
+    if not blob.startswith(PNG_SIGNATURE):
         raise PNGError(f"{path}: not a PNG file")
-    pos, header, palette, idat = len(_SIGNATURE), None, None, []
+    pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
     while True:
         if pos + 8 > len(blob):
             raise PNGError(f"{path}: truncated PNG")

@@ -11,7 +11,8 @@
 
 CSVs go through the ``csv`` module and PNGs through ``_png``; the items
 equal the JAX readers' (pandas and PIL) on the same tree.  Only
-``AnnotationDataset``'s JPEG frames need PIL, imported when one is read.
+``AnnotationDataset``'s JPEG frames need PIL, imported when one is read; a
+frame file that holds PNG bytes reads without it, whatever its suffix.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from ._png import imread_palette, imread_rgb01 as _png_rgb01
+from ._png import PNG_SIGNATURE, imread_palette, imread_rgb01 as _png_rgb01
 from .synthetic import synthetic_video
 from ..ops.masks import all_to_onehot
 from ..interactions.eval import VideoSample
@@ -34,8 +35,12 @@ EMPTY_GT_TOKEN = 20
 
 
 def _imread_rgb01(path) -> np.ndarray:
-    if Path(path).suffix.lower() == ".png":
-        return _png_rgb01(path)
+    """A frame as [H, W, 3] float32 in [0, 1].  The file's first bytes
+    decide, as PIL's ``open`` does: PNG bytes go through ``_png`` whatever
+    the suffix, anything else through PIL."""
+    with open(path, "rb") as fh:
+        if fh.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE:
+            return _png_rgb01(path)
     try:
         from PIL import Image
     except ImportError as exc:
@@ -56,7 +61,8 @@ def write_csv_rows(path, rows: list[dict]):
     index=False)`` lays them out."""
     keys = list(dict.fromkeys(k for row in rows for k in row))
     with open(path, "w", newline="") as fh:
-        writer = csv.DictWriter(fh, fieldnames=keys, restval="")
+        writer = csv.DictWriter(fh, fieldnames=keys, restval="",
+                                lineterminator="\n")
         writer.writeheader()
         writer.writerows(rows)
 

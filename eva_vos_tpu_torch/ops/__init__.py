@@ -1,6 +1,7 @@
 from .padding import compute_pad, pad_hw, unpad_hw, pad_divide_by
-from .aggregate import aggregate_wbg
-from .normalize import IMAGENET_MEAN, IMAGENET_STD, im_normalize
+from .aggregate import aggregate_wbg, aggregate_sbg, aggregate_wbg_channel
+from .normalize import (IMAGENET_MEAN, IMAGENET_STD, im_normalize,
+                        im_denormalize)
 from .resize import (resize_bilinear, resize_bicubic, resize_nearest,
                      upsample2x, area_downsample)
 from .masks import all_to_onehot, masks_to_boxes
@@ -9,6 +10,7 @@ from .memory_attention import (
     memory_readout,
     resolve_strategy,
     memory_affinity_topk,
+    memory_affinity_topk_gauss,
     topk_scores,
     full_softmax_affinity,
 )
@@ -19,9 +21,12 @@ __all__ = [
     "unpad_hw",
     "pad_divide_by",
     "aggregate_wbg",
+    "aggregate_sbg",
+    "aggregate_wbg_channel",
     "IMAGENET_MEAN",
     "IMAGENET_STD",
     "im_normalize",
+    "im_denormalize",
     "resize_bilinear",
     "resize_bicubic",
     "resize_nearest",
@@ -33,6 +38,7 @@ __all__ = [
     "memory_readout",
     "resolve_strategy",
     "memory_affinity_topk",
+    "memory_affinity_topk_gauss",
     "topk_scores",
     "full_softmax_affinity",
 ]

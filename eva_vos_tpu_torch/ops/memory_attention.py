@@ -128,6 +128,35 @@ def memory_readout(mk, qk, mv, top_k: int = 50, valid_tokens=None,
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
+def memory_affinity_topk_gauss(mk, qk, top_k: int, query_hw, sigma: float,
+                               valid_tokens=None):
+    """Top-k affinity with gaussian locality (the reference's kernelized
+    memory, ``prop_net.py:33-44, 46-51, 92-99``; no entry point reads it).
+
+    Each memory token gets a gaussian prior centred at its best-matching
+    query position (the argmax over queries restores the per-query
+    ``-|q|^2`` term, which is not constant along that axis); the
+    per-query exp-scores are weighted by that prior before the top-k
+    selection, ties to the lowest id.
+
+    query_hw: (h, w) of the query grid, whose row-major cells are the
+    queries.  Returns (weights [N, top_k] fp32, indices [N, top_k] int64).
+    """
+    h, w = query_hw
+    scores = _scores(mk, qk, valid_tokens)                   # [N, M]
+    x_exp = torch.exp(scores - scores.max(dim=1, keepdim=True).values)
+    q_sq = (qk.float() ** 2).sum(-1) / math.sqrt(mk.shape[-1])
+    best_q = torch.argmax(scores - q_sq[:, None], dim=0)     # [M]
+    cy, cx = (best_q // w).float(), (best_q % w).float()
+    cells = torch.arange(h * w, device=mk.device)
+    qy, qx = (cells // w).float(), (cells % w).float()
+    g = torch.exp(-((qy[:, None] - cy[None, :]) ** 2
+                    + (qx[:, None] - cx[None, :]) ** 2) / (2.0 * sigma ** 2))
+    vals, idx = torch.sort(x_exp * g, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    return vals / vals.sum(dim=1, keepdim=True), idx
+
+
 def full_softmax_affinity(mk, qk, valid_tokens=None) -> torch.Tensor:
     """Dense softmax affinity over the memory axis: [N, M] fp32."""
     return torch.softmax(_scores(mk, qk, valid_tokens), dim=-1)

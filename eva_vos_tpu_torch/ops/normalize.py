@@ -19,3 +19,10 @@ def im_normalize(img: torch.Tensor) -> torch.Tensor:
     mean = torch.as_tensor(IMAGENET_MEAN).to(img)
     std = torch.as_tensor(IMAGENET_STD).to(img)
     return (img - mean) / std
+
+
+def im_denormalize(img: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`im_normalize` (the reference's ``inv_im_trans``)."""
+    mean = torch.as_tensor(IMAGENET_MEAN).to(img)
+    std = torch.as_tensor(IMAGENET_STD).to(img)
+    return img * std + mean

@@ -10,6 +10,7 @@ Inputs are numpy from a seed.
 """
 
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -386,6 +387,28 @@ def test_annotation_dataset_matches_jax(rng, tmp_path):
             assert s_ours.name == s_ref.name
             np.testing.assert_array_equal(s_ours.images01, s_ref.images01)
             np.testing.assert_array_equal(s_ours.gt, s_ref.gt)
+
+
+def test_png_bytes_under_a_jpg_name_read_as_in_jax(rng, tmp_path,
+                                                   monkeypatch):
+    """The frame reader goes by the file's bytes, as PIL does: a PNG saved
+    as ``00000.jpg`` reads the same in both packages, without PIL in the
+    port; a real JPEG still goes through PIL."""
+    rgb = _images(rng)["RGB"]
+    png = tmp_path / "00000.jpg"
+    write_png(png, rgb)
+    jpeg = tmp_path / "00001.jpg"
+    Image.fromarray(rgb).save(jpeg)
+    for path in (png, jpeg):
+        np.testing.assert_array_equal(pd_._imread_rgb01(path),
+                                      jd._imread_rgb01(path))
+    np.testing.assert_array_equal(pd_._imread_rgb01(png),
+                                  rgb.astype(np.float32) / 255.0)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    np.testing.assert_array_equal(pd_._imread_rgb01(png),
+                                  rgb.astype(np.float32) / 255.0)
+    with pytest.raises(ImportError, match="needs PIL"):
+        pd_._imread_rgb01(jpeg)
 
 
 def test_synthetic_sample_matches_jax():

@@ -67,6 +67,96 @@ def test_aggregate_wbg(rng, k, keep_bg):
            jx_agg.aggregate_wbg(jnp.asarray(prob), keep_bg=keep_bg))
 
 
+def test_im_denormalize(rng):
+    img = rng.standard_normal((4, 16, 24, 3)).astype(np.float32)
+    _close(normalize.im_denormalize(torch.from_numpy(img)),
+           jx_norm.im_denormalize(jnp.asarray(img)))
+
+
+def _agg_prob(rng, shape):
+    prob = rng.uniform(0, 1, shape).astype(np.float32)
+    prob.reshape(shape[0], -1)[0, :2] = 0.0     # the eps clamps, both ends
+    prob.reshape(shape[0], -1)[-1, 2:4] = 1.0
+    return prob
+
+
+def _close_hard(ours, theirs, new_prob, axis):
+    """The ``hard`` outputs: the softmax of 1000x the logits.  XLA's and
+    torch's fp32 ``log`` differ by up to an ulp (here 4.8e-7 on ~9% of the
+    logits), which 1000x moves the softmax's argument by up to 1000 times
+    that.  Where both packages' logits of every class (the background's
+    too) agree bit for bit, the outputs agree to ATOL; elsewhere within 1000x the logits' largest
+    difference (softmax moves by less than its argument)."""
+    x = np.clip(new_prob, 1e-7, 1 - 1e-7)
+    dlog = np.abs(torch.log(torch.from_numpy(x / (1 - x))).numpy()
+                  - np.asarray(jnp.log(jnp.asarray(x / (1 - x)))))
+    same = np.expand_dims((dlog == 0).all(axis=axis), axis)
+    ours, theirs = ours.numpy(), np.asarray(theirs)
+    diff = np.abs(ours - theirs)
+    assert same.mean() > 0.5
+    assert diff[np.broadcast_to(same, diff.shape)].max() <= ATOL
+    assert diff.max() <= 1000 * dlog.max() + ATOL
+
+
+@pytest.mark.parametrize("name", ["aggregate_wbg", "aggregate_sbg"])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("keep_bg", [True, False])
+@pytest.mark.parametrize("hard", [True, False])
+def test_aggregate_variants(rng, name, k, keep_bg, hard):
+    prob = _agg_prob(rng, (k, 2, 16, 24))
+    ours = getattr(aggregate, name)(torch.from_numpy(prob), keep_bg=keep_bg,
+                                    hard=hard)
+    theirs = getattr(jx_agg, name)(jnp.asarray(prob), keep_bg=keep_bg,
+                                   hard=hard)
+    if not hard:
+        _close(ours, theirs)
+        return
+    bg = (np.prod(1 - prob, axis=0, keepdims=True) if name == "aggregate_wbg"
+          else np.full_like(prob[:1], 0.5))
+    new_prob = np.concatenate([bg, prob])
+    _close_hard(ours, theirs, new_prob, 0)
+
+
+@pytest.mark.parametrize("keep_bg", [True, False])
+@pytest.mark.parametrize("hard", [True, False])
+def test_aggregate_wbg_channel(rng, keep_bg, hard):
+    """(logits, softmax) over axis 1: the logits (x1000 when ``hard``) to
+    a relative 1e-6, the softmax as above."""
+    prob = _agg_prob(rng, (3, 2, 16, 24)).transpose(1, 0, 2, 3).copy()
+    logits, out = aggregate.aggregate_wbg_channel(torch.from_numpy(prob),
+                                                  keep_bg=keep_bg, hard=hard)
+    jlogits, jout = jx_agg.aggregate_wbg_channel(jnp.asarray(prob),
+                                                 keep_bg=keep_bg, hard=hard)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=1e-6, atol=ATOL)
+    if not hard:
+        _close(out, jout)
+        return
+    new_prob = np.concatenate(
+        [np.prod(1 - prob, axis=1, keepdims=True), prob], axis=1)
+    _close_hard(out, jout, new_prob, 1)
+
+
+@pytest.mark.parametrize("valid", [None, 40])
+def test_memory_affinity_topk_gauss(rng, valid):
+    from eva_vos_tpu.ops import memory_attention as jx_mem
+    from eva_vos_tpu_torch.ops import memory_attention
+
+    h, w, m, ck, top_k = 6, 8, 64, 16, 8
+    mk = rng.standard_normal((m, ck)).astype(np.float32)
+    qk = rng.standard_normal((h * w, ck)).astype(np.float32)
+    wts, idx = memory_attention.memory_affinity_topk_gauss(
+        torch.from_numpy(mk), torch.from_numpy(qk), top_k, (h, w), 3.0,
+        valid_tokens=valid)
+    jw, jidx = jx_mem.memory_affinity_topk_gauss(
+        jnp.asarray(mk), jnp.asarray(qk), top_k, (h, w), 3.0,
+        valid_tokens=valid)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    _close(wts, jw)
+    if valid is not None:
+        assert int(idx.max()) < valid
+
+
 @pytest.mark.parametrize("shape,out_hw", [((2, 6, 8, 5), (24, 32)),
                                           ((3, 5, 7, 2), (20, 28)),
                                           ((4, 4, 1), (8, 8))])
