@@ -144,7 +144,25 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    rows; (f) ``vis.read_exp`` of (a) and (b): finite curves.  #1 and #2
    must launch at least once a round of every run.  Each run prints its
    build seconds, seconds a round, ``WallClock`` spans and launches;
-12. one JSON line with each kernel's launches (from the engine read that
+12. the parallel layer (``eva_vos_tpu_torch.parallel``, ``native``), after
+   the native library is built and before any process is spawned: the
+   default, newest-first and resident selections on an empty shard (fill
+   0) must write NEG_INF scores with in-range ids; (a) phase 6's engine
+   with ``readout_strategy="sharded"`` on a one-process NCCL group, its
+   interacts at PARALLEL_FRAMES against the 'fused' engine's (within
+   PROB_ATOL / PROB_FRAC), #1 launched once for every sharded read, the
+   untraced interact ms and the collective bytes; (b) the same episode in
+   two processes sharing the card over gloo against (a)'s (each rank's
+   bank half of (a)'s, its collective bytes the same on its whole bank and
+   on a quarter of it and within 4x ``comm_model_bytes``), the
+   data-parallel QNet step (the CLI's widths) and PPO update against one
+   process's, and ``dryrun_multichip(2, "gloo", "cuda")``; (c) (b) over
+   NCCL on min(4, count) cards, only when there are two cards or more;
+   (d) rand_rand's rounds of phase 8 with the native click robot and with
+   scipy's, in turns: the same clicks, and each run's ``annotate`` span;
+   the labeling alone on one error mask at 480x854, in turns: the same
+   result, and each turn's median ms a call;
+13. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
    times and bound.
 
@@ -223,6 +241,26 @@ CLI_MU_ATOL = 1e-4
 CLI_EVA_COLUMNS = ["video", "mu_metric", "annotation_time", "round",
                    "weights", "rl_values", "round_metrics",
                    "annotated_frames", "annotation_actions"]
+# the parallel phase (cuts: PERF.md §4): the sharded engine's episode on
+# phase 6's engine and video, its ranks' processes bounded by
+# PARALLEL_TIMEOUT_S each; the data-parallel QNet step at the train_qnet
+# CLI's widths and the PPO update at the fleet's minibatch (40 envs x 5
+# steps / 10), fp32, against one process's: their losses within
+# DP_LOSS_RTOL (measured up to 2.1e-7), each parameter's change within
+# DP_PARAM_L2 of its L2 norm (fp32 near-ties in max-pool and ReLU move
+# single elements; a gradient left unsummed moves the whole change by
+# about half), the running statistics within DP_STAT_TOL of their largest
+# magnitude.  (d) times the robot's labeling of one error mask at 480x854,
+# LABEL_CALLS calls a turn
+PARALLEL_FRAMES = (0, ENGINE["t"] - 1, 30)
+PARALLEL_TIMEOUT_S = 300
+ONE_CARD_BACKEND = "nccl"
+QNET_DP_ROWS, QNET_DP_SIZE = 64, 224
+PPO_DP_ROWS = 20
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_L2 = 0.1
+DP_STAT_TOL = 1e-3
+LABEL_CALLS = 200
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -2389,6 +2427,470 @@ def cli_phase(torch, results, card, images, masks):
     results["cli"] = dict(out, phase_s=phase_s)
 
 
+def run_episode(torch, engine, feats, pad, masks, frames=None):
+    """Interacts at ``frames`` (PARALLEL_FRAMES by default) from a fresh
+    state (donating it), after one untimed warm-up interact at the first
+    frame (a group's first collective sets up its communicator); for
+    each, its untraced host ms, the sharded reads it made and #1's
+    launches, the counters zeroed just before it and read just after."""
+    from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch.engine import pad_mask
+    from eva_vos_tpu_torch.engine import propagation as P
+
+    reads = [0]
+    orig = P.sharded_memory_readout
+
+    def counted(*args, **kwargs):
+        reads[0] += 1
+        return orig(*args, **kwargs)
+
+    def sync():
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+
+    frames = frames or PARALLEL_FRAMES
+    engine.interact(engine.init_state(feats, 1), feats, pad_mask(
+        masks[:1, frames[0]], pad, device=engine.device), frames[0],
+        donate=True)
+    state, rows = engine.init_state(feats, 1), []
+    P.sharded_memory_readout = counted
+    try:
+        for idx in frames:
+            mask = pad_mask(masks[:1, idx], pad, device=engine.device)
+            reads[0], K.topk_select.launches = 0, 0
+            sync()
+            start = time.perf_counter()
+            state = engine.interact(state, feats, mask, idx, donate=True)
+            sync()
+            rows.append(dict(frame=idx, reads=reads[0],
+                             ms=(time.perf_counter() - start) * 1e3,
+                             topk_launches=K.topk_select.launches))
+    finally:
+        P.sharded_memory_readout = orig
+    return state, rows
+
+
+def check_episode(name, rows):
+    """Every sharded read launched #1 once."""
+    for r in rows:
+        if r["reads"] <= 0 or r["topk_launches"] != r["reads"]:
+            fail(f"{name}: #1 launched {r['topk_launches']} times for "
+                 f"{r['reads']} sharded reads at frame {r['frame']}")
+
+
+def prob_off(torch, got, want) -> tuple:
+    """(share of probabilities off by more than PROB_ATOL, max |d|)."""
+    diff = (got.float() - want.float()).abs()
+    return (diff > PROB_ATOL).float().mean().item(), diff.max().item()
+
+
+def bank_bytes(state) -> int:
+    return (state.bank_k.numel() * state.bank_k.element_size()
+            + state.bank_v.numel() * state.bank_v.element_size())
+
+
+def readout_bytes(torch, mesh, state, feats) -> dict:
+    """The collective bytes of one sharded read at the blocked step's N
+    (mem_freq frames of queries) on this rank's whole bank and on a quarter
+    of it (at least top_k tokens, which bound each rank's candidates),
+    against comm_model_bytes."""
+    from eva_vos_tpu_torch.parallel import (collective_bytes,
+                                            comm_model_bytes,
+                                            sharded_memory_readout)
+
+    slots, hw, ck = state.bank_k.shape
+    qk = feats.k16[1:6].reshape(-1, ck)
+    quarter = max(slots // 4, -(-TOP_K // hw))
+    out = {}
+    for part in (slots, quarter):
+        mk = state.bank_k[:part].reshape(-1, ck)
+        mv = state.bank_v[:, :part].reshape(1, -1, state.bank_v.shape[-1])
+        out[part] = collective_bytes(
+            sharded_memory_readout, mesh, mk, qk, mv, TOP_K, mesh,
+            valid_tokens=mesh.size * part * hw)["total_bytes"]
+    model = comm_model_bytes(qk.shape[0], TOP_K, CV, 1, mesh.size)
+    return dict(n=qk.shape[0], whole=out[slots], quarter=out[quarter],
+                model=model["total_bytes"])
+
+
+def check_readout_bytes(name, b):
+    if b["whole"] != b["quarter"] or not 0 < b["whole"] <= 4 * b["model"]:
+        fail(f"{name}: collective bytes {b}: they must not depend on the "
+             f"bank and stay within 4x the model")
+
+
+def parallel_rank(torch, spec, rank: int, size: int) -> dict:
+    """One process of the parallel phase's group: the full-width sharded
+    episode against the one-card engine's, its bank, its collective bytes,
+    and the data-parallel QNet step and PPO update at the CLI's widths
+    against the one-process ones."""
+    from eva_vos_tpu_torch.data import synthetic_video
+    from eva_vos_tpu_torch.engine import (EngineConfig, InferenceEngine,
+                                          prepare_video)
+    from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
+    from eva_vos_tpu_torch.parallel import make_mesh
+    from eva_vos_tpu_torch.parallel.dryrun import (ppo_update_check,
+                                                   qnet_step_check)
+
+    mesh = make_mesh(size, device=spec["device"])
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    eng = spec["engine"]
+    dtype = torch.bfloat16
+    weights = torch.load(spec["weights"])
+    stcn = PropagationNetwork(key_arch=eng["key_arch"],
+                              value_arch="resnet18").to(dtype)
+    stcn.load_state_dict(weights["stcn"])
+    fusion = FusionNet().to(dtype)
+    fusion.load_state_dict(weights["fusion"])
+    cfg = EngineConfig(mem_freq=5, top_k=TOP_K, max_interactions=60,
+                       feature_chunk=2, readout_strategy="sharded")
+    engine = InferenceEngine(stcn, fusion, cfg, mesh=mesh)
+    images, masks = synthetic_video(eng["t"], eng["h"], eng["w"],
+                                    num_objects=1, seed=0)
+    padded, pad = prepare_video(images, dtype=dtype, device=mesh.device)
+    feats = engine.precompute_features(padded)
+    before = dict(mesh.collective_bytes)
+    state, rows = run_episode(torch, engine, feats, pad, masks,
+                              spec["frames"])
+    moved = {k: mesh.collective_bytes[k] - before[k] for k in before}
+    ref = torch.load(spec["ref_prob"]).to(mesh.device)
+    off, dmax = prob_off(torch, state.prob, ref)
+    out = dict(rank=rank, device=str(mesh.device), rounds=rows,
+               bank_bytes=bank_bytes(state), episode_bytes=moved,
+               share_off=off, max_abs_dp=dmax,
+               finite=bool(torch.isfinite(state.prob).all()),
+               readout_bytes=readout_bytes(torch, mesh, state, feats))
+    del state, feats, engine
+    for name, fn, kw in (
+            ("qnet", qnet_step_check, dict(rows=spec["qnet_rows"],
+                                           size=spec["qnet_size"])),
+            ("ppo", ppo_update_check, dict(rows=spec["ppo_rows"], emb_hw=64,
+                                           mask_hw=spec["qnet_size"]))):
+        start = time.perf_counter()
+        out[name] = fn(mesh, dtype=torch.float32, **kw)
+        out[name]["seconds"] = time.perf_counter() - start
+    return out
+
+
+def parallel_worker(argv) -> int:
+    """``chip_smoke.py --parallel-worker <spec.json> <rank> <size>``: one
+    process of the parallel phase's group (spawned by ``parallel_group``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    spec = json.loads(Path(argv[0]).read_text())
+    rank, size = int(argv[1]), int(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(spec["backend"], init_method=spec["store"],
+                            world_size=size, rank=rank)
+    try:
+        out = parallel_rank(torch, spec, rank, size)
+    finally:
+        dist.destroy_process_group()
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def parallel_group(torch, name, backend, n, tmp, one_card, card) -> list:
+    """(b) / (c): the parallel phase's ranks in ``n`` processes over
+    ``backend``, each checked against the one-card episode ``one_card``."""
+    from eva_vos_tpu_torch.parallel.dryrun import spawn
+
+    out_dir = Path(tmp, name)
+    out_dir.mkdir()
+    spec = dict(backend=backend, store=Path(out_dir, "store").as_uri(),
+                weights=str(Path(tmp, "weights.pt")),
+                ref_prob=str(Path(tmp, "ref_prob.pt")), out=str(out_dir),
+                device=DEVICE, engine=ENGINE, frames=PARALLEL_FRAMES,
+                qnet_rows=QNET_DP_ROWS, qnet_size=QNET_DP_SIZE,
+                ppo_rows=PPO_DP_ROWS)
+    Path(out_dir, "spec.json").write_text(json.dumps(spec))
+    start = time.perf_counter()
+    spawn(n, [ROOT / "chip_smoke.py", "--parallel-worker",
+              Path(out_dir, "spec.json")], PARALLEL_TIMEOUT_S)
+    wall = time.perf_counter() - start
+    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+             for r in range(n)]
+    for r in ranks:
+        tag = f"[parallel {name}] rank {r['rank']} ({r['device']})"
+        check_episode(f"{tag} episode", r["rounds"])
+        if not r["finite"] or r["share_off"] > PROB_FRAC:
+            fail(f"{tag}: {r['share_off']:.2e} of probabilities off the "
+                 f"one-card engine's by > {PROB_ATOL} (finite: "
+                 f"{r['finite']})")
+        if r["bank_bytes"] * n != one_card["bank_bytes"]:
+            fail(f"{tag}: bank {r['bank_bytes']} B, not 1/{n} of the "
+                 f"one-card bank's {one_card['bank_bytes']} B")
+        check_readout_bytes(tag, r["readout_bytes"])
+        for step in ("qnet", "ppo"):
+            e = r[step]
+            if not math.isfinite(e["loss"]) or e["loss_err"] > DP_LOSS_RTOL:
+                fail(f"{tag} {step}: data-parallel loss {e['loss']} off the "
+                     f"one-process loss by {e['loss_err']:.2e}")
+            if not (e["param_l2_err"] <= DP_PARAM_L2
+                    and e["stat_err"] <= DP_STAT_TOL):
+                fail(f"{tag} {step}: data-parallel step off the one-process "
+                     f"step: parameters {e['param_l2_err']:.2e} of a leaf's "
+                     f"change in L2 (limit {DP_PARAM_L2}), running "
+                     f"statistics {e['stat_err']:.2e} (limit {DP_STAT_TOL})")
+        print(f"{tag}: interacts at frames {list(PARALLEL_FRAMES)}: "
+              + ", ".join(f"{x['ms']:.0f} ms ({x['reads']} reads, #1 x "
+                          f"{x['topk_launches']})" for x in r["rounds"])
+              + f"; probabilities off the one-card engine by > {PROB_ATOL}:"
+              f" {r['share_off']:.2e} (max |dp| {r['max_abs_dp']:.3g}); bank "
+              f"{r['bank_bytes'] / 2**20:.1f} MiB (one card "
+              f"{one_card['bank_bytes'] / 2**20:.1f} MiB); collectives "
+              f"{r['episode_bytes']} B over the episode, "
+              f"{r['readout_bytes']['whole']} B a read at N = "
+              f"{r['readout_bytes']['n']} on the whole bank and on a quarter "
+              f"(model {r['readout_bytes']['model']} B)", flush=True)
+        print(f"{tag}: data-parallel QNet step (resnet18, {QNET_DP_SIZE} px, "
+              f"batch {QNET_DP_ROWS}, fp32) against one process: loss rel "
+              f"err {r['qnet']['loss_err']:.2e}, params "
+              f"{r['qnet']['param_err']:.2e} of a leaf's largest change, "
+              f"{r['qnet']['param_l2_err']:.2e} in L2, running stats "
+              f"{r['qnet']['stat_err']:.2e}; PPO update (minibatch "
+              f"{PPO_DP_ROWS}): loss {r['ppo']['loss_err']:.2e}, params "
+              f"{r['ppo']['param_err']:.2e}, {r['ppo']['param_l2_err']:.2e} "
+              f"in L2, running stats {r['ppo']['stat_err']:.2e}; both checks "
+              f"{r['qnet']['seconds']:.2f} s / {r['ppo']['seconds']:.2f} s "
+              f"(host; {n} processes on {card}: these times say nothing "
+              f"about scaling)", flush=True)
+    print(f"[parallel {name}] {n} processes over {backend}: {wall:.1f} s "
+          f"with start-up", flush=True)
+    return ranks
+
+
+def native_check(torch, engine, images, masks):
+    """(d): rand_rand's click rounds of the policy phase on the fake SAM
+    with the native click robot and with scipy's, in turns (scipy, native,
+    native, scipy): equal clicks, and each run's ``annotate`` span."""
+    import os
+
+    import numpy as np
+
+    from eva_vos_tpu_torch import interactions as I
+    from eva_vos_tpu_torch import native
+    from eva_vos_tpu_torch.annotator import Annotator, FakeSAMController
+    from eva_vos_tpu_torch.interactions import eval as E
+    from eva_vos_tpu_torch.interactions import multiple as MULTI
+
+    _, rounds, kwargs = next(p for p in POLICY_LOOPS if p[0] == "rand_rand")
+    sample = I.VideoSample(name="synthetic_seed0", images01=images, gt=masks)
+    I.initialize(engine, sample)
+    saved = os.environ.get("EVAVOS_NATIVE")
+    runs = []
+    for flag in ("0", "1", "1", "0"):       # in turns
+        clicks, calls = [], [0]
+        annotate, center = MULTI.annotate, native.largest_component_center
+
+        def recorded(*args, **kw):
+            out = annotate(*args, **kw)
+            clicks.append([args[1]] + [None if x is None else
+                                       np.asarray(x).tolist()
+                                       for x in out[4:6]])
+            return out
+
+        def counted(mask):
+            calls[0] += 1
+            return center(mask)
+
+        os.environ["EVAVOS_NATIVE"] = flag
+        MULTI.annotate, native.largest_component_center = recorded, counted
+        try:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            I.rand_rand(rounds, engine, sample,
+                        Annotator(FakeSAMController()), **kwargs)
+            seconds = time.perf_counter() - start
+        finally:
+            MULTI.annotate, native.largest_component_center = annotate, center
+            if saved is None:
+                os.environ.pop("EVAVOS_NATIVE", None)
+            else:
+                os.environ["EVAVOS_NATIVE"] = saved
+        spans = E.LAST_SESSION.timers.summary()
+        runs.append(dict(native=flag == "1", clicks=clicks,
+                         native_calls=calls[0], seconds=seconds,
+                         annotate=spans.get("annotate")))
+        print(f"[parallel native] rand_rand ({rounds} rounds) with the "
+              f"{'native' if flag == '1' else 'scipy'} click robot: "
+              f"{seconds:.2f} s, annotate span {spans.get('annotate')}, "
+              f"{calls[0]} native labelings", flush=True)
+    for r in runs:
+        if (r["native_calls"] > 0) != r["native"]:
+            fail(f"native robot: {r['native_calls']} native labelings in a "
+                 f"run {'with' if r['native'] else 'without'} it")
+        if r["clicks"] != runs[0]["clicks"]:
+            fail("native robot: its clicks differ from scipy's")
+    if not any(c[1] for c in runs[0]["clicks"]):
+        fail("native robot: rand_rand made no click")
+    print(f"[parallel native] {len(runs[0]['clicks'])} annotations, the "
+          f"same clicks in all four runs", flush=True)
+    return dict(runs=runs, labeling=labeling_check(masks))
+
+
+def labeling_check(masks):
+    """The click robot's labeling alone (``_largest_component_click``, what
+    each click calls) on one error mask at the video's size, the frame-0
+    and frame-10 masks' difference: LABEL_CALLS calls a turn, with scipy
+    and the native library in turns (scipy, native, native, scipy); the
+    same result, and each turn's median ms a call."""
+    import os
+    import statistics
+
+    import numpy as np
+
+    from eva_vos_tpu_torch.annotator import robots
+
+    err = np.asarray(masks[0, 0]).astype(bool) ^ np.asarray(
+        masks[0, 10]).astype(bool)
+    saved = os.environ.get("EVAVOS_NATIVE")
+    turns = []
+    try:
+        for flag in ("0", "1", "1", "0"):
+            os.environ["EVAVOS_NATIVE"] = flag
+            ms = []
+            for _ in range(LABEL_CALLS):
+                start = time.perf_counter()
+                out = robots._largest_component_click(err)
+                ms.append((time.perf_counter() - start) * 1e3)
+            turns.append(dict(native=flag == "1", out=list(out),
+                              median_ms=statistics.median(ms),
+                              min_ms=min(ms)))
+    finally:
+        if saved is None:
+            os.environ.pop("EVAVOS_NATIVE", None)
+        else:
+            os.environ["EVAVOS_NATIVE"] = saved
+    if any(t["out"] != turns[0]["out"] for t in turns) or turns[0]["out"][1] == 0:
+        fail(f"native robot: labelings differ or find nothing: "
+             f"{[t['out'] for t in turns]}")
+    print(f"[parallel native] labeling a {err.shape[1]}x{err.shape[0]} error "
+          f"mask ({int(err.sum())} pixels), {LABEL_CALLS} calls a turn, "
+          f"median (min) ms a call in turns: " + ", ".join(
+              f"{'native' if t['native'] else 'scipy'} {t['median_ms']:.3f} "
+              f"({t['min_ms']:.3f})" for t in turns) + " (host)", flush=True)
+    return turns
+
+
+def parallel_phase(torch, results, card, engine, images, masks):
+    """The parallel phase: (a) a one-process NCCL group, (b) two processes
+    sharing the card over gloo and the gloo dry run, (c) NCCL across cards
+    where there are several, (d) the native click robot."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch import native
+    from eva_vos_tpu_torch.engine import InferenceEngine, prepare_video
+    from eva_vos_tpu_torch.ops.memory_attention import NEG_INF
+    from eva_vos_tpu_torch.parallel import dryrun_multichip, make_mesh
+
+    phase_start = time.perf_counter()
+    native.build()            # before any process is spawned
+    out = {}
+    padded, pad = prepare_video(images, dtype=torch.bfloat16, device=DEVICE)
+    feats = engine.precompute_features(padded)
+
+    # the selections' output on an empty shard (rank > 0 at frame 0)
+    qk = feats.k16[1:6].reshape(-1, CK)
+    mk = feats.k16[:36].reshape(-1, CK)
+    empty = {}
+    for name, fn in (("memory_topk", K.topk_select),
+                     ("memory_topk_chunked", K.topk_select_chunked),
+                     ("memory_topk_resident", K.topk_select_resident)):
+        vals, idx = fn(qk, mk, 0, TOP_K)
+        torch.cuda.synchronize()
+        empty[name] = bool((vals == NEG_INF).all()) and bool(
+            ((idx >= 0) & (idx < mk.shape[0])).all())
+    print(f"[parallel a] fill 0: every score NEG_INF with in-range ids: "
+          f"{empty}", flush=True)
+    if not all(empty.values()):
+        fail(f"a selection at fill 0 writes other than NEG_INF: {empty}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) one process, an NCCL group of one, full width
+        dist.init_process_group(ONE_CARD_BACKEND, init_method=Path(
+            tmp, "store_a").as_uri(), world_size=1, rank=0)
+        try:
+            mesh = make_mesh(device=DEVICE)
+            sharded = InferenceEngine(
+                engine.stcn, engine.fusion, engine.config._replace(
+                    readout_strategy="sharded"), mesh=mesh)
+            fused_state, fused_rows = run_episode(torch, engine, feats, pad,
+                                                  masks)
+            before = dict(mesh.collective_bytes)
+            state, rows = run_episode(torch, sharded, feats, pad, masks)
+            moved = {k: mesh.collective_bytes[k] - before[k] for k in before}
+            check_episode("[parallel a]", rows)
+            off, dmax = prob_off(torch, state.prob, fused_state.prob)
+            if not torch.isfinite(state.prob).all() or off > PROB_FRAC:
+                fail(f"[parallel a]: {off:.2e} of probabilities off the "
+                     f"fused engine's by > {PROB_ATOL}")
+            rb = readout_bytes(torch, mesh, state, feats)
+            check_readout_bytes("[parallel a]", rb)
+            out["a"] = dict(rounds=rows, fused_rounds=fused_rows,
+                            share_off=off, max_abs_dp=dmax,
+                            episode_bytes=moved, readout_bytes=rb,
+                            bank_bytes=bank_bytes(state), empty_fill=empty)
+            print(f"[parallel a] sharded engine, one-process NCCL group: "
+                  f"interacts at frames {list(PARALLEL_FRAMES)}: "
+                  + ", ".join(f"{x['ms']:.0f} ms ({x['reads']} reads, #1 x "
+                              f"{x['topk_launches']})" for x in rows)
+                  + "; fused engine: " + ", ".join(
+                      f"{x['ms']:.0f} ms" for x in fused_rows)
+                  + f" (untraced); probabilities off the fused engine's by > "
+                  f"{PROB_ATOL}: {off:.2e} (max |dp| {dmax:.3g}); collectives "
+                  f"{moved} B over the episode, {rb['whole']} B a read at N "
+                  f"= {rb['n']} (model {rb['model']} B); on {card}",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+        torch.save({"stcn": engine.stcn.state_dict(),
+                    "fusion": engine.fusion.state_dict()},
+                   Path(tmp, "weights.pt"))
+        torch.save(state.prob.half().cpu(), Path(tmp, "ref_prob.pt"))
+        one_card = out["a"]
+        del state, fused_state, feats, sharded
+        torch.cuda.empty_cache()
+
+        # (b) two processes sharing the card over gloo
+        out["b"] = parallel_group(torch, "gloo2", "gloo", 2, tmp, one_card,
+                                  card)
+        start = time.perf_counter()
+        out["dryrun_gloo2"] = dryrun_multichip(2, "gloo", DEVICE,
+                                               timeout=PARALLEL_TIMEOUT_S)
+        out["dryrun_gloo2"]["seconds"] = time.perf_counter() - start
+
+        # (c) NCCL across cards
+        count = torch.cuda.device_count()
+        if count >= 2:
+            n = min(4, count)
+            out["c"] = parallel_group(torch, f"nccl{n}", "nccl", n, tmp,
+                                      one_card, card)
+            out["dryrun_nccl"] = dryrun_multichip(n, "nccl", "cuda",
+                                                  timeout=PARALLEL_TIMEOUT_S)
+        else:
+            out["c"] = None
+            print(f"[parallel nccl-multi] not run: {count} card", flush=True)
+
+    # (d) the native click robot
+    out["native"] = native_check(torch, engine, images, masks)
+    out["topk_launches"] = (
+        sum(x["topk_launches"] for x in out["a"]["rounds"])
+        + sum(x["topk_launches"] for r in out["b"] for x in r["rounds"])
+        + sum(x["topk_launches"] for r in out["c"] or [] for x in r["rounds"]))
+    phase_s = time.perf_counter() - phase_start
+    print(f"[parallel] #1 launched {out['topk_launches']} times on the sharded"
+          f" episodes; the phase took {phase_s:.1f} s", flush=True)
+    results["parallel"] = dict(out, phase_s=phase_s)
+
+
 def kernels_line(results, launches):
     """Each kernel's entry of the kernels JSON line: its time, plain time,
     library time and bound at a 72-slot clustered bank (N = 8100; readouts
@@ -2465,6 +2967,7 @@ def main() -> int:
                                    masks)
     training_phase(torch, results, card, images, masks, predictor)
     cli_phase(torch, results, card, images, masks)
+    parallel_phase(torch, results, card, engine, images, masks)
 
     kernels = kernels_line(results, launches)
     out_dir = ROOT / "chiprun_out"
@@ -2480,4 +2983,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2:]))
     sys.exit(main())

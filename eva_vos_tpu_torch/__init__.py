@@ -26,7 +26,11 @@ Same layer map as the JAX package, module for module:
 - ``utils``     annotation costs, wall-clock spans and device traces, weight
                 conversion from the JAX parameter trees, config, logging,
                 checkpoints, the model zoo and the CSV tables
-- ``parallel``  the eval CLI's process group and per-process shards
+- ``parallel``  the process group and its mesh, batch and video shards,
+                the collectives, the bank-sharded memory read and the
+                multi-process dry run
+- ``native``    the click robot's C++ union-find, built with g++ at first
+                use
 - ``vis``       the experiment CSVs' curves and ranking, plots, overlays
 - ``cli``       the main experiment CLI, the two dataset generators, the
                 two trainers and the two download CLIs

@@ -3,24 +3,41 @@
 
 Behavior parity targets: ``robots/click_robot.py`` and
 ``robots/bbox_robot.py``.  These run on the host (connected-component
-labeling over error masks); scipy.ndimage provides the 8-connectivity
-labeling the reference gets from skimage.  All inputs and outputs are
-numpy; click coordinates are (x, y) pairs, labels 1=positive, 0=negative.
+labeling over error masks): the native C++ union-find (``native``) unless
+``EVAVOS_NATIVE=0``, read at each call, then scipy.ndimage's
+8-connectivity labeling, which the reference gets from skimage; the two
+give identical clicks.  A native library that does not build raises.  All
+inputs and outputs are numpy; click coordinates are (x, y) pairs, labels
+1=positive, 0=negative.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 from scipy import ndimage
 
+from .. import native
 from ..ops.masks import masks_to_boxes
 
 _EIGHT_CONN = np.ones((3, 3), dtype=int)
 
 
+def _use_native() -> bool:
+    return os.environ.get("EVAVOS_NATIVE", "1") != "0"
+
+
 def _largest_component_click(mask: np.ndarray):
     """Center click (x, y) and size of the largest 8-connected component,
-    or (None, 0) when empty."""
+    or (None, 0) when empty.  Native C++ union-find (one fused pass) or
+    scipy.ndimage: identical outputs."""
+    if _use_native():
+        out = native.largest_component_center(mask)
+        if out is None:
+            return None, 0
+        cx, cy, size = out
+        return (cx, cy), size
     labels, num = ndimage.label(mask, structure=_EIGHT_CONN)
     if num == 0:
         return None, 0
@@ -36,6 +53,10 @@ def _snap_to_mask(click_xy, mask: np.ndarray):
     x, y = click_xy
     if mask[y, x]:
         return x, y
+    if _use_native():
+        out = native.nearest_true(mask, x, y)
+        if out is not None:
+            return out
     ys, xs = np.nonzero(mask)
     d = (xs - x) ** 2 + (ys - y) ** 2
     i = int(np.argmin(d))

@@ -2,9 +2,19 @@
 
 Behavior parity target: ``train_qnet.py`` + ``util/hyper_para.py`` in the
 reference — 30 epochs of 20-bin CE on the FQ dataset, SGD lr 1e-5 batch 64.
-One device; metrics go to CSV (and wandb when available) and the final
-weights to ``<out>/qnet_ckpt``, a ``torch.save`` state dict in the
-reference layout (``utils/checkpoint.py``).
+Metrics go to CSV (and wandb when available) and the final weights to
+``<out>/qnet_ckpt``, a ``torch.save`` state dict in the reference layout
+(``utils/checkpoint.py``).
+
+Launched as a group (``EVAVOS_NUM_PROCESSES`` > 1, with
+``EVAVOS_COORDINATOR`` and each process's ``EVAVOS_PROCESS_ID``; one
+process per card, NCCL, or gloo with ``--device cpu``) it trains
+data-parallel over ``make_mesh()``, as the JAX CLI trains over every local
+device: each process loads only its rows of every batch.  The training
+batch size must divide by the number of processes; the validation batches
+split into shares that differ by at most a row (the JAX CLI's sharded
+evaluation takes only batches that divide).  Rank 0 alone writes the logs
+and the checkpoint.
 
 Usage:
     python -m eva_vos_tpu_torch.cli.train_qnet --train-set subset_train_4
@@ -18,7 +28,10 @@ import time
 
 import numpy as np
 
+import torch
+
 from ..data.datasets import MaskQualityDB
+from ..parallel.mesh import init_distributed, make_mesh
 from ..train import QNetTrainer
 from ..utils.checkpoint import save_checkpoint
 from ..utils.config import apply_yaml_config
@@ -51,31 +64,44 @@ def main(argv=None):
     train_db = MaskQualityDB(db_root, db_root / f"res_{args.train_set}.csv")
     val_db = MaskQualityDB(db_root, db_root / "res_val.csv")
 
+    # a no-op unless EVAVOS_NUM_PROCESSES > 1
+    mesh = None
+    if init_distributed(backend="nccl" if torch.device(args.device).type
+                        == "cuda" else "gloo"):
+        mesh = make_mesh(device=args.device)
+        if args.batch_size % mesh.size:
+            raise ValueError(f"--batch-size {args.batch_size} does not "
+                             f"divide by the {mesh.size} processes")
+    part = None if mesh is None else (mesh.rank, mesh.size)
+    lead = mesh is None or mesh.rank == 0
     trainer = QNetTrainer(arch=args.arch, lr=args.lr, optim=args.optim,
-                          device=args.device)
+                          device=None if mesh else args.device, mesh=mesh)
     state = trainer.init(seed=0)
-    logger = MetricsLogger("qnet", config=vars(args))
+    logger = MetricsLogger("qnet", config=vars(args)) if lead else None
 
     n_params = sum(p.numel() for p in state.net.parameters())
     print(f"[INFO] Architecture: {args.arch}")
     print(f"[INFO] Trainable parameters: {n_params / 1e6:.2f}M")
-    print(f"[INFO] Device: {trainer.device}")
+    print(f"[INFO] Device: {trainer.device}"
+          + (f" (rank {mesh.rank} of {mesh.size})" if mesh else ""))
 
     for epoch in range(args.epochs):
         t0 = time.time()
         tr_loss, tr_acc, n = 0.0, 0.0, 0
-        for batch in train_db.batches(args.batch_size, rng=rng):
+        for batch in train_db.batches(args.batch_size, rng=rng, part=part):
             state, metrics = trainer.train_step(state, batch)
             tr_loss += float(metrics["loss"])
             tr_acc += float(metrics["acc"])
             n += 1
 
         va_acc, vn = 0.0, 0
-        for batch in val_db.batches(32, drop_last=False):
+        for batch in val_db.batches(32, drop_last=False, part=part):
             metrics = trainer.eval_step(state, batch)
             va_acc += float(metrics["acc"])
             vn += 1
 
+        if not lead:
+            continue
         logger.log({
             "Train loss": tr_loss / max(n, 1),
             "Train acc": tr_acc / max(n, 1),
@@ -85,9 +111,12 @@ def main(argv=None):
               f"loss={tr_loss / max(n, 1):.4f} acc={tr_acc / max(n, 1):.3f} "
               f"val_acc={va_acc / max(vn, 1):.3f} ({time.time() - t0:.1f}s)")
 
-    path = os.path.join(args.out, "qnet_ckpt")
-    save_checkpoint(path, state.net.state_dict())
-    print(f"[done] saved to {path}")
+    if lead:
+        path = os.path.join(args.out, "qnet_ckpt")
+        save_checkpoint(path, state.net.state_dict())
+        print(f"[done] saved to {path}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return state
 
 

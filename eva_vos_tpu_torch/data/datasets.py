@@ -162,18 +162,27 @@ class MaskQualityDB:
                 "label": self.iou_to_label(iou)}
 
     def batches(self, batch_size, rng: Optional[np.random.Generator] = None,
-                drop_last=True):
+                drop_last=True, part: Optional[tuple] = None):
+        """Batches of ``batch_size`` rows in ``rng``'s order.  ``part``
+        (rank, size): only that rank's contiguous share of each batch is
+        loaded (shares differ by at most a row)."""
         order = np.arange(len(self))
         if rng is not None:
             rng.shuffle(order)
         end = len(self) - (len(self) % batch_size) if drop_last else len(self)
         for start in range(0, end, batch_size):
             idx = order[start:start + batch_size]
+            if part is not None:
+                idx = np.array_split(idx, part[1])[part[0]]
             items = [self[i] for i in idx]
+            rows = len(items)
+            if not items:       # a share of a batch smaller than the group
+                items = [self[order[start]]]
             yield {
-                "img": np.stack([it["img"] for it in items]),
-                "mask": np.stack([it["mask"] for it in items]),
-                "label": np.asarray([it["label"] for it in items], np.int32),
+                "img": np.stack([it["img"] for it in items])[:rows],
+                "mask": np.stack([it["mask"] for it in items])[:rows],
+                "label": np.asarray([it["label"] for it in items],
+                                    np.int32)[:rows],
             }
 
 

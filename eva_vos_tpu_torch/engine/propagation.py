@@ -16,7 +16,12 @@ As in the JAX engine:
   fill;
 * with ``block_frames`` the ``mem_freq`` frames between two admissions,
   which read one frozen bank, are segmented in one batched step, and the
-  frames after the last full block run one at a time.
+  frames after the last full block run one at a time;
+* with ``readout_strategy="sharded"`` and a ``mesh`` the bank's slots are
+  sharded contiguously across the mesh's ranks, each rank allocating and
+  writing only its own, and the read is
+  ``parallel.sharded_memory_readout``; the features, the decoder,
+  FusionNet and the probabilities are replicated on every rank.
 
 PyTorch runs eagerly, so the passes are Python loops over host integers.
 The state's tensors are updated in place on a copy (``donate=False``, the
@@ -36,6 +41,7 @@ from ..ops.aggregate import aggregate_wbg
 from ..ops.memory_attention import memory_readout, resolve_strategy
 from ..ops.normalize import im_normalize
 from ..ops.padding import compute_pad, pad_hw, unpad_hw
+from ..parallel.sharded_attention import sharded_memory_readout
 
 
 class VideoFeatures(NamedTuple):
@@ -66,7 +72,8 @@ class EngineConfig(NamedTuple):
     feature_chunk: int = 4          # frames per encode_key step in precompute
     readout_strategy: str = "auto"  # 'auto': 'fused' (the CUDA kernels) on
     #   a CUDA device, 'gather' (the plain read) on the CPU; 'select' (the
-    #   split-bank selection kernel + gather) and 'scatter' too
+    #   split-bank selection kernel + gather) and 'scatter' too; 'sharded'
+    #   (never 'auto''s choice): the bank sharded over the engine's mesh
     block_frames: bool = True       # batch the mem_freq frames between
     #                                 memory admissions (same results)
     kernels: KernelConfig | None = None  # the 'fused' read's kernels; None:
@@ -79,11 +86,18 @@ class InferenceEngine:
 
     stcn: a ``PropagationNetwork``; fusion: a ``FusionNet``, or None to keep
     the fresh prediction between interacted frames instead of fusing.
-    Both are moved to ``device`` and set to eval mode.
+    Both are moved to ``device`` (by default the mesh's device, else
+    'cuda') and set to eval mode.  ``mesh``: a ``parallel.Mesh``, which
+    the 'sharded' read needs.
     """
 
     def __init__(self, stcn, fusion, config: EngineConfig = EngineConfig(),
-                 device="cuda"):
+                 device=None, mesh=None):
+        if config.readout_strategy == "sharded" and mesh is None:
+            raise ValueError("readout_strategy='sharded' needs a mesh")
+        self.mesh = mesh
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
         self.device = torch.device(device)
         self.stcn = stcn.to(self.device).eval()
         self.fusion = None if fusion is None else fusion.to(self.device).eval()
@@ -93,6 +107,7 @@ class InferenceEngine:
             readout_strategy=resolve_strategy(config.readout_strategy,
                                               self.device),
             kernels=kernels)
+        self._sharded = self.config.readout_strategy == "sharded"
 
     # ------------------------------------------------------------------
     # feature precompute
@@ -120,6 +135,9 @@ class InferenceEngine:
         cfg = self.config
         n_transient = max(0, t - 2) // cfg.mem_freq + 1
         mmax = cfg.max_interactions + n_transient
+        if self._sharded:
+            # the slots shard contiguously: this rank holds mmax / S of them
+            mmax = -(-mmax // self.mesh.size)
         cv = self.stcn.value_dim
         dev, dtype = feats.k16.device, feats.k16.dtype
         prob = torch.zeros((num_objects + 1, t, nh, nw), dtype=torch.float32,
@@ -145,11 +163,17 @@ class InferenceEngine:
         qk = feats.k16[tis].reshape(b * hw, ck)
         mk = bank_k.reshape(mmax * hw, ck)
         mv = bank_v.reshape(k_obj, mmax * hw, cv)
-        top_k = min(self.config.top_k, mmax * hw)
-        readout = memory_readout(mk, qk, mv, top_k=top_k,
-                                 valid_tokens=front * hw,
-                                 strategy=self.config.readout_strategy,
-                                 kernel_cfg=self.config.kernels)
+        if self._sharded:
+            top_k = min(self.config.top_k, self.mesh.size * mmax * hw)
+            readout = sharded_memory_readout(
+                mk, qk, mv, top_k, self.mesh, valid_tokens=front * hw,
+                kernel_cfg=self.config.kernels)
+        else:
+            readout = memory_readout(mk, qk, mv,
+                                     top_k=min(self.config.top_k, mmax * hw),
+                                     valid_tokens=front * hw,
+                                     strategy=self.config.readout_strategy,
+                                     kernel_cfg=self.config.kernels)
         h16, w16 = feats.f16_thin.shape[1:3]
         readout = readout.reshape(k_obj, b, h16, w16, cv).transpose(0, 1)
         return self.stcn.decode_with_readout(
@@ -188,7 +212,13 @@ class InferenceEngine:
         return torch.stack(fused)
 
     def _store(self, feats, state, front, ti, masks):
-        """Admit frame ti (object masks [K, nh, nw]) into bank slot ``front``."""
+        """Admit frame ti (object masks [K, nh, nw]) into bank slot ``front``
+        (on a sharded bank: on the rank that owns the slot, alone)."""
+        if self._sharded:
+            owned = state.bank_k.shape[0]
+            if front // owned != self.mesh.rank:
+                return
+            front -= self.mesh.rank * owned
         state.bank_k[front] = feats.k16[ti]
         value = self.stcn.encode_value(feats.images[ti], feats.f16[ti],
                                        masks.to(state.bank_v.dtype))
@@ -231,7 +261,8 @@ class InferenceEngine:
 
         ``donate=True`` updates the input state's tensors in place (no copy
         of the ~340 MB prob volume and bank at 480p/60 frames); the input
-        state must not be used afterwards.  The default leaves it intact.
+        state must not be used afterwards.  The default leaves it intact
+        (it copies this rank's shard of a sharded bank).
         """
         cc = state.certain_count
         if cc >= self.config.max_interactions:

@@ -83,15 +83,16 @@ def memory_affinity_topk(mk, qk, top_k: int, valid_tokens=None):
     return softmax_weights(vals), idx
 
 
-def weighted_gather(mv, w, idx):
+def weighted_gather(mv, w, idx, out_dtype=None):
     """mv [K, M, CV], w [N, k] fp32 weights, idx [N, k] -> [K, N, CV] in
-    mv.dtype: the selected rows, weighted and summed in fp32."""
+    ``out_dtype`` (default mv.dtype): the selected rows, weighted and
+    summed in fp32."""
     outs = []
     for lo in range(0, idx.shape[0], _QUERY_CHUNK):
         sl = slice(lo, lo + _QUERY_CHUNK)
         gathered = mv[:, idx[sl].long(), :].float()         # [K, n, k, CV]
         outs.append(torch.einsum("nk,bnkc->bnc", w[sl], gathered))
-    return torch.cat(outs, dim=1).to(mv.dtype)
+    return torch.cat(outs, dim=1).to(out_dtype or mv.dtype)
 
 
 def memory_readout(mk, qk, mv, top_k: int = 50, valid_tokens=None,
