@@ -61,6 +61,15 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    the outputs be finite, and one blocked segmentation step through the
    kernels must match the plain read; one more frame-0 interact of the
    chunked read counts the rows its readout staged against the picks;
+6b. the propagation step entry point, ``eva_vos_tpu_torch.entry.entry()``
+   at its defaults (480x864, resnet50/resnet18, a 4-frame bank of 6,480
+   tokens, N = 1,620 queries, top_k = 50, bf16, seeded weights): the
+   'fused' step (#1, then #2) against a 'gather' step on the same weights
+   and inputs (within PROB_ATOL / PROB_FRAC), its [2, 480, 864] output
+   finite and summing to 1 over the channels, the launch counters, zeroed
+   just before each step and read just after, showing #1 and #2 once
+   each a fused step and no other kernel, and STEP_ITERS untraced steps
+   of each read after a warm-up, interleaved (median and range);
 7. ``resize_bilinear`` on a bf16 batch of frames that shrinks: it must
    take the antialiased filter (in fp32, cast back), and whether torch's
    own antialiased kernel takes bf16 on the card is printed;
@@ -156,7 +165,8 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    bank half of (a)'s, its collective bytes the same on its whole bank and
    on a quarter of it and within 4x ``comm_model_bytes``), the
    data-parallel QNet step (the CLI's widths) and PPO update against one
-   process's, and ``dryrun_multichip(2, "gloo", "cuda")``; (c) (b) over
+   process's, and ``dryrun_multichip(2)`` (the two-process multi-host
+   rehearsal on the card, then the dry run; gloo on one card); (c) (b) over
    NCCL on min(4, count) cards, only when there are two cards or more;
    (d) rand_rand's rounds of phase 8 with the native click robot and with
    scipy's, in turns: the same clicks, and each run's ``annotate`` span;
@@ -191,6 +201,7 @@ CK, CV, TOP_K = 64, 512, 50
 FILLS = (1, 12, 72)          # bank slots: one memory, one pass, a full bank
 ENGINE_ITERS = 10            # timed frame-0 interacts per read, interleaved
 FRAME30_ITERS = 3            # untraced frame-30 interacts per read
+STEP_ITERS = 10              # untraced propagation steps per read (phase 6b)
 # the policy loops on the engine's video: (loop, rounds, keyword arguments)
 POLICY_LOOPS = (
     ("oracle_mask", 5, dict(eval_metric="j_and_f")),
@@ -1135,6 +1146,106 @@ def engine_phase(torch, results, card):
             foreground_share=float(np.mean(ids > 0)))
     results["engine"] = dict(precompute_s=precompute_s, paths=paths)
     return launches, (base, images, masks)
+
+
+def step_phase(torch, results, card):
+    """Phase 6b: the propagation step entry point at its defaults, the
+    'fused' step against a 'gather' step on the same weights and inputs,
+    #1 and #2 once each a fused step, STEP_ITERS untraced steps of each
+    read after a warm-up, interleaved."""
+    from eva_vos_tpu_torch.entry import entry
+
+    step, args = entry(device=DEVICE)
+    plain, _ = entry(device=DEVICE, strategy="gather")
+    counters = launch_counters()
+    path = {"memory_topk": 1, "memory_readout": 1}
+    want_counts = {k: path.get(k, 0) for k in counters}
+
+    def run(fn):
+        """One untraced step in host seconds, and the launches it made
+        (the counters zeroed just before it and read just after)."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start, {
+            k: c.launches for k, c in counters.items()}
+
+    got, _, counts = run(step)                                 # warm-up
+    want, _, plain_counts = run(plain)
+    times = {"fused": [], "gather": []}
+    for _ in range(STEP_ITERS):                # interleaved: fused, gather
+        got, seconds, c = run(step)
+        times["fused"].append(seconds)
+        if c != want_counts:
+            fail(f"[step] a fused step launched {c}, not {want_counts}")
+        _, seconds, c = run(plain)
+        times["gather"].append(seconds)
+        if any(c.values()):
+            fail(f"[step] a gather step launched {c}")
+    if counts != want_counts or any(plain_counts.values()):
+        fail(f"[step] warm-up launches: fused {counts}, gather "
+             f"{plain_counts}")
+    if tuple(got.shape) != (2, 480, 864) or got.dtype != torch.float32:
+        fail(f"[step] output {tuple(got.shape)} {got.dtype}")
+    if not torch.isfinite(got).all():
+        fail("[step] non-finite probabilities")
+    sum_err = (got.sum(0) - 1).abs().max().item()
+    if sum_err > 1e-3:
+        fail(f"[step] probabilities sum to 1 within {sum_err:.3g}")
+    diff = (got - want).abs()
+    frac = (diff > PROB_ATOL).float().mean().item()
+    if frac > PROB_FRAC:
+        fail(f"[step] fused vs gather: {frac:.2e} of probabilities off by "
+             f"> {PROB_ATOL}")
+    ms = {k: sorted(1e3 * x for x in v) for k, v in times.items()}
+    trace = step_trace(torch, step, args)
+    print(f"[step] entry() fused vs gather: max|dp|={diff.max().item():.3g}, "
+          f"share > {PROB_ATOL}: {frac:.2e}; channel sums within "
+          f"{sum_err:.2e}; launches a fused step {counts}", flush=True)
+    print(f"[step] untraced step ms, {STEP_ITERS} interleaved after a "
+          f"warm-up: fused median {statistics.median(ms['fused']):.2f} (min "
+          f"{ms['fused'][0]:.2f}, max {ms['fused'][-1]:.2f}), gather median "
+          f"{statistics.median(ms['gather']):.2f} (min {ms['gather'][0]:.2f}"
+          f", max {ms['gather'][-1]:.2f}); on {card}", flush=True)
+    print(f"[step] traced fused step ({STEP_ITERS} steps): device busy "
+          f"{trace['busy_ms']:.3f} ms a step in {trace['kernels']} kernels; "
+          f"#1 {trace['topk_ms']:.4f} ms, #2 {trace['readout_ms']:.4f} ms; "
+          f"idle share of the untraced median "
+          f"{1 - trace['busy_ms'] / statistics.median(ms['fused']):.3f}",
+          flush=True)
+    results["step"] = dict(
+        ms=ms, trace=trace, launches_per_step=counts,
+        max_abs_dp=diff.max().item(),
+        share_off=frac, sum_err=sum_err,
+        foreground_mean=got[1].mean().item())
+
+
+def step_trace(torch, step, args) -> dict:
+    """Device time of the fused step's kernels a step over STEP_ITERS
+    steps, from a ``torch.profiler`` trace: all of them (busy), #1's block
+    and merge kernels, and #2's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(STEP_ITERS):
+            step(*args)
+        torch.cuda.synchronize()
+    us = [(e.name, e.time_range.end - e.time_range.start)
+          for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not us:
+        fail("[step] the profiler's trace holds no kernel")
+
+    def ms(*names):
+        return sum(t for n, t in us if any(k in n for k in names)) / (
+            STEP_ITERS * 1e3)
+
+    return {"busy_ms": ms(""), "kernels": len(us) // STEP_ITERS,
+            "topk_ms": ms("topk_prune_block_kernel", "topk_merge_t_kernel"),
+            "readout_ms": ms("readout_kernel")}
 
 
 def resize_phase(torch, results):
@@ -2863,7 +2974,7 @@ def parallel_phase(torch, results, card, engine, images, masks):
         out["b"] = parallel_group(torch, "gloo2", "gloo", 2, tmp, one_card,
                                   card)
         start = time.perf_counter()
-        out["dryrun_gloo2"] = dryrun_multichip(2, "gloo", DEVICE,
+        out["dryrun_gloo2"] = dryrun_multichip(2, device=DEVICE,
                                                timeout=PARALLEL_TIMEOUT_S)
         out["dryrun_gloo2"]["seconds"] = time.perf_counter() - start
 
@@ -2961,6 +3072,7 @@ def main() -> int:
     entry_launches = entry_phase(torch, results)
     launches, (engine, images, masks) = engine_phase(torch, results, card)
     launches.update(entry_launches)
+    step_phase(torch, results, card)
     resize_phase(torch, results)
     policy_phase(torch, results, card, engine, images, masks)
     predictor = decision_sam_phase(torch, results, card, engine, images,

@@ -1,8 +1,11 @@
 """The multi-process dry run (counterpart of ``__graft_entry__``'s
-``dryrun_multichip``): every data-parallel and bank-sharded path of the
-port, in ``n`` processes, each against its one-process result.
+``dryrun_multichip`` and ``dryrun_multihost``): first the two-process
+rehearsal of the eval CLI's ``--multihost`` path
+(``_multihost_rehearsal``), then every data-parallel and bank-sharded
+path of the port, in ``n`` processes, each against its one-process
+result.  Both run on the card unless the caller passes ``device='cpu'``.
 
-Each process runs, on its mesh rank:
+Each process of the dry run proper runs, on its mesh rank:
 
 * a data-parallel QNet step against the one-process step on the global
   batch (float64, dropout on);
@@ -13,8 +16,8 @@ Each process runs, on its mesh rank:
 * the readout's collective bytes at two bank sizes: equal, and at most
   4x ``comm_model_bytes``.
 
-Usage (one process per card over NCCL, or processes sharing a card or the
-CPU over gloo)::
+Usage (one process per card over NCCL, or processes sharing a card over
+gloo; ``device="cpu"``: gloo on the CPU)::
 
     python -c "from eva_vos_tpu_torch.parallel import dryrun_multichip;
                dryrun_multichip(2)"
@@ -31,6 +34,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .mesh import group_backend
 
 STEP_TOL = 1e-7            # data-parallel step against one process, float64
 LOSS_TOL = 1e-6            # its metrics, taken on fp32 logits as in JAX
@@ -309,11 +314,46 @@ def spawn(n: int, argv, timeout: float) -> list:
     return outs
 
 
-def dryrun_multichip(n: int, backend: str = "gloo", device: str = "cpu",
+def dryrun_multihost(n_procs: int = 2, device: str = "cuda",
+                     timeout: float = 120.0) -> dict:
+    """The multi-host rehearsal (counterpart of ``__graft_entry__``'s
+    ``dryrun_multihost``): ``n_procs`` processes of
+    ``parallel._multihost_rehearsal`` on a free local port, each joining
+    the group through ``init_distributed``, checking its
+    ``host_shard_range`` and one cross-process ``all_reduce``, on
+    ``device`` ('cuda': process p on card p modulo the card count, over
+    NCCL when each has its own card, else gloo; 'cpu': gloo).  A failed
+    or late process raises with its output."""
+    import socket
+
+    backend = group_backend(n_procs, device)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = ("import sys; from eva_vos_tpu_torch.parallel._multihost_rehearsal"
+            " import main; main(int(sys.argv[3]), int(sys.argv[4]), "
+            "sys.argv[1], sys.argv[2])")
+    outs = spawn(n_procs, ["-c", code, port, device], timeout)
+    lines = [line for out in outs for line in out.splitlines()
+             if line.startswith("[multihost-rehearsal]")]
+    print(f"dryrun_multihost({n_procs}, {device!r}): init_distributed over "
+          f"{backend} + host_shard_range + cross-process all_reduce OK",
+          flush=True)
+    return {"n_procs": n_procs, "backend": backend, "device": device,
+            "lines": lines}
+
+
+def dryrun_multichip(n: int, backend: str | None = None, device: str = "cuda",
                      timeout: float = 300.0) -> dict:
-    """Run the dry run in ``n`` processes over ``backend`` on ``device``
-    ('cpu', or 'cuda': rank r on card r modulo the card count); a failed
-    rank raises.  Returns rank 0's results."""
+    """The multi-host rehearsal (:func:`dryrun_multihost`, two processes on
+    ``device``), then the dry run in ``n`` processes over ``backend`` on
+    ``device`` (rank r on card r modulo the card count).  ``backend=None``
+    is 'nccl' when ``n`` fits on the cards and 'gloo' otherwise, or on
+    the CPU.  Without a CUDA device it raises unless ``device='cpu'``; a
+    failed rank raises.  Returns rank 0's results, with the rehearsal's
+    under "multihost"."""
+    backend = backend or group_backend(n, device)
+    multihost = dryrun_multihost(2, device, timeout)
     with tempfile.TemporaryDirectory() as tmp:
         code = ("import sys; from eva_vos_tpu_torch.parallel.dryrun import "
                 "main; main(sys.argv[1:])")
@@ -321,7 +361,7 @@ def dryrun_multichip(n: int, backend: str = "gloo", device: str = "cpu",
                   tmp], timeout)
         results = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                    for r in range(n)]
-    out = results[0]
+    out = dict(results[0], multihost=multihost)
     print(f"dryrun_multichip({n}, {backend!r}, {device!r}): dp qnet step "
           f"(param err {out['qnet']['param_err']:.2e}) + dp ppo update "
           f"(param err {out['ppo']['param_err']:.2e}) + sharded readout "

@@ -95,6 +95,20 @@ class Mesh:
         default_factory=lambda: {"all-gather": 0, "all-reduce": 0})
 
 
+def group_backend(n_procs: int, device) -> str:
+    """The backend of ``n_procs`` processes on ``device``: 'nccl' when each
+    has a card of its own, 'gloo' when they share cards or run on the CPU
+    (NCCL will not put two ranks of one communicator on one GPU).  A CUDA
+    ``device`` with no card raises: nothing falls back to the CPU unasked."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "processes on the CPU")
+    return "nccl" if n_procs <= count else "gloo"
+
+
 def _default_device(rank: int, device) -> torch.device:
     """``device`` as given; 'cuda' (or None) is ``cuda:<local rank>``, the
     local rank (``LOCAL_RANK``, else the rank) modulo the card count."""

@@ -341,8 +341,14 @@ def test_global_batch_norm_is_the_one_process_batch_norm(ranks):
                                    rtol=STEP_TOL, atol=0)
 
 
-def test_dryrun_multichip_on_the_cpu():
-    out = dryrun_multichip(2)
+def test_dryrun_multichip_on_the_cpu(capsys):
+    out = dryrun_multichip(2, device="cpu")
+    # the two-process multi-host rehearsal ran first, on the CPU over gloo
+    said = capsys.readouterr().out
+    assert 0 <= said.find("dryrun_multihost(2, 'cpu'): ") < said.find(
+        "dryrun_multichip(2, 'gloo', 'cpu'): ")
+    assert out["multihost"]["backend"] == "gloo"
+    assert len(out["multihost"]["lines"]) == 2
     assert out["rank"] == 0
     assert out["qnet"]["param_err"] <= STEP_TOL
     assert out["ppo"]["param_err"] <= STEP_TOL
