@@ -70,6 +70,17 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    just before each step and read just after, showing #1 and #2 once
    each a fused step and no other kernel, and STEP_ITERS untraced steps
    of each read after a warm-up, interleaved (median and range);
+6c. the default read above top_k 256 (#1's radix select, #2's sliced
+   staging): #1 on the clustered banks of FILLS at N = 8100, top_k 512 and
+   2,048 in bf16 and 512 in fp32 at fill 12, against the plain selection
+   (``check_selection``'s rule; the slots past the live tokens (-1e30, 0)),
+   and #2 on its picks against the plain readout, each with its device
+   ms split per kernel, plain and library times and bound; #1's merge
+   passes (top_k 20,000); phase 6's engine at top_k 512, fused against
+   gather at frame 0 and frame 30 (within PROB_ATOL / PROB_FRAC), #1 and #2
+   exactly as often as at top_k 50 and no other kernel, LARGE_K_ITERS
+   interleaved frame-0 interacts a read; the eval CLI with ``--top-k 512``
+   (oracle_mask, 3 rounds) against a direct call (``[large-k ...]`` lines);
 7. ``resize_bilinear`` on a bf16 batch of frames that shrinks: it must
    take the antialiased filter (in fp32, cast back), and whether torch's
    own antialiased kernel takes bf16 on the card is printed;
@@ -174,7 +185,7 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    result, and each turn's median ms a call;
 13. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
-   times and bound.
+   times and bound, and the large-k paths of #1 and #2 (phase 6c).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 full results also go to ``chiprun_out/chip_smoke.json``.  Without a CUDA
@@ -273,9 +284,28 @@ DP_PARAM_L2 = 0.1
 DP_STAT_TOL = 1e-3
 LABEL_CALLS = 200
 
+# the large-k phase (6c): #1 above 256 (the radix select) and #2 above 256
+# (the sliced readout) on the clustered banks of FILLS at N = N_QUERIES in
+# bf16 at each LARGE_K, and in fp32 at LARGE_K_FP32 (fill, top_k); the merge
+# passes of #1 (more than 8,192 keys a query) on LARGE_K_MERGE (N, M,
+# top_k), checked untimed; phase 6's engine at top_k LARGE_K_ENGINE, fused
+# against gather, LARGE_K_ITERS interleaved frame-0 interacts a read; the
+# eval CLI at --top-k LARGE_K_ENGINE, oracle_mask, LARGE_K_ROUNDS rounds
+LARGE_K = (512, 2048)
+LARGE_K_FP32 = (12, 512)
+LARGE_K_MERGE = (256, 40000, 20000)
+LARGE_K_ENGINE = 512
+LARGE_K_ITERS = 5
+LARGE_K_ROUNDS = 3
+# the large-k path's kernels, as a trace names them
+RADIX_KERNELS = ("topk_radix_kernel", "topk_sort_chunks_kernel",
+                 "topk_rank_merge_kernel", "topk_keys_t_kernel")
+SLICED_KERNEL = "readout_sliced_kernel"
+
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 
 # Scores are sums of 64 bf16 x bf16 products in fp32, |terms| up to ~20, in
 # another order than the plain version's cuBLAS product: differences stay
@@ -285,6 +315,9 @@ SCORE_ATOL = 1e-3
 # The readout is a weighted mean in fp32 rounded to bf16 at the end: the two
 # versions may land one bf16 ulp apart (2^-8 relative, values up to ~5).
 READOUT_RTOL, READOUT_ATOL = 2 ** -7, 2e-2
+# the fp32 readout: weighted means of N(0, 1) values in fp32, summed in
+# the same order as the plain version's einsum only up to rounding
+FP32_READOUT_ATOL = 1e-5
 # One blocked segmentation step, kernels vs plain read, through the bf16
 # decoder: readouts one ulp apart, and a swapped near-tied token at the top-k
 # boundary, move a few probabilities; the share of pixels off by more than
@@ -337,6 +370,12 @@ REPLACES = {"memory_topk": "eva_vos_tpu/kernels/memory_topk.py:380",
             "memory_readout": "eva_vos_tpu/kernels/memory_readout.py:64",
             "memory_readout_chunked":
                 "eva_vos_tpu/kernels/memory_readout.py:196"}
+
+
+# the large-k paths of #1 and #2 in the kernels line, by the kernel whose
+# source and TPU kernel they share
+LARGE_K_LINE = {"memory_topk_radix": "memory_topk",
+                "memory_readout_sliced": "memory_readout"}
 
 
 def fail(msg: str):
@@ -429,9 +468,10 @@ def hmma_count(build, name: str):
     return sum("HMMA" in line for line in out.splitlines())
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float,
+             peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -463,12 +503,14 @@ def check_selection(torch, vals, idx, ref_vals, ref_idx, name, k=None):
     return err, int((idx != ref_idx[:k]).sum())
 
 
-def selection_bound(n: int, valid: int, k=None):
+def selection_bound(n: int, valid: int, k=None, fp32: bool = False):
     """Bound of an exact top-k selection: read qk and the valid keys once,
-    write k (score, id) pairs per query; 2 * CK flops per (query, token)."""
+    write k (score, id) pairs per query; 2 * CK flops per (query, token),
+    on the tensor cores for bf16 keys and on the FP32 units for fp32."""
     k = k or TOP_K
-    n_bytes = 2 * CK * (n + valid) + 8 * k * n
-    return bound_ms(n_bytes, 2.0 * n * valid * CK)
+    n_bytes = (4 if fp32 else 2) * CK * (n + valid) + 8 * k * n
+    return bound_ms(n_bytes, 2.0 * n * valid * CK,
+                    PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
 
 
 def library_select(torch, mk, q, k=None):
@@ -582,13 +624,18 @@ def no_skip_case(torch, q, mk, valid, sel, chunked_counted, esc, floored,
     return out
 
 
-def readout_bound(idx, k_obj: int):
-    """Bound of the readout: each distinct selected row once per object,
-    the selection once, the output once; 2 flops per gathered element."""
-    rows = idx.unique().numel()
-    n = idx.shape[1]
-    n_bytes = k_obj * rows * CV * 2 + 8 * TOP_K * n + k_obj * n * CV * 2
-    return bound_ms(n_bytes, 2.0 * k_obj * n * TOP_K * CV), rows
+def readout_bound(idx, k_obj: int, vals=None, itemsize: int = 2):
+    """Bound of the readout: each distinct selected row of weight > 0 once
+    per object, the selection once, the output once; 2 flops per gathered
+    element of weight > 0 (``vals`` None: every pick weighs)."""
+    k, n = idx.shape
+    live = ((vals - vals[:1]).exp() > 0 if vals is not None
+            else idx.new_ones(idx.shape, dtype=bool))
+    rows = idx[live].unique().numel()
+    picks = int(live.sum())
+    n_bytes = (k_obj * rows * CV * itemsize + 8 * k * n
+               + k_obj * n * CV * itemsize)
+    return bound_ms(n_bytes, 2.0 * k_obj * picks * CV), rows
 
 
 def tile_rows(torch, vals, idx, queries: int):
@@ -1145,7 +1192,7 @@ def engine_phase(torch, results, card):
             step_max_abs_dp=diff.max().item(), step_share_off=frac,
             foreground_share=float(np.mean(ids > 0)))
     results["engine"] = dict(precompute_s=precompute_s, paths=paths)
-    return launches, (base, images, masks)
+    return launches, (base, images, masks), (feats, pad)
 
 
 def step_phase(torch, results, card):
@@ -1246,6 +1293,337 @@ def step_trace(torch, step, args) -> dict:
     return {"busy_ms": ms(""), "kernels": len(us) // STEP_ITERS,
             "topk_ms": ms("topk_prune_block_kernel", "topk_merge_t_kernel"),
             "readout_ms": ms("readout_kernel")}
+
+
+def named_ms(torch, fn, per_call: dict, reps: int = 5) -> dict:
+    """Device ms a call of ``fn`` of each kernel whose name holds a key of
+    ``per_call`` (its launches a call), from a ``torch.profiler`` trace of
+    ``reps`` calls: the mean time of its events times its launches a call
+    (a trace may miss an event), and "all", their sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [(e.name, e.time_range.end - e.time_range.start)
+          for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for k, launches in per_call.items():
+        mine = [t for n, t in us if k in n]
+        if launches and not mine:
+            fail(f"the profiler's trace of {reps} calls holds no {k}")
+        out[k] = sum(mine) / max(1, len(mine)) * launches / 1e3
+    out["all"] = sum(out.values())
+    return out
+
+
+def large_k_case(torch, q, mk, valid, mv, k, label, rows):
+    """#1 at top_k ``k`` (> 256: the radix select) against its plain
+    version with ``check_selection``'s rule, its dead slots (-1e30, 0),
+    and #2 on its picks against the plain readout, both timed beside
+    their plain versions, library calls and bounds."""
+    from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch.kernels.memory_topk import RADIX_SORT_CHUNK
+    from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
+
+    fp32 = q.dtype == torch.float32
+    n = q.shape[0]
+    ref_vals, ref_idx = K.topk_select_plain(q, mk, valid, k + 1)
+    K.topk_select.launches = 0
+    vals, idx = K.topk_select(q, mk, valid, k)
+    torch.cuda.synchronize()
+    if K.topk_select.launches != 1:
+        fail(f"{label}: topk_select launched {K.topk_select.launches} times")
+    kk = min(k, valid)
+    dead = int(k - kk)
+    err, n_diff = check_selection(torch, vals[:kk], idx[:kk],
+                                  ref_vals[:kk + 1], ref_idx[:kk + 1], label,
+                                  kk)
+    if not (bool((vals[kk:] == -1e30).all()) and bool((idx[kk:] == 0).all())):
+        fail(f"{label}: the {dead} slots past the live tokens are not "
+             f"(-1e30, 0)")
+    call = lambda: K.topk_select(q, mk, valid, k)  # noqa: E731
+    merges = max(0, math.ceil(math.log2(-(-kk // RADIX_SORT_CHUNK))))
+    split = named_ms(torch, call, dict(zip(RADIX_KERNELS, (
+        int(kk > 0), int(kk > 0), merges, 1))))
+    # the library call selects the live kk (torch.topk takes no k above
+    # the valid tokens; the dead slots are constants)
+    lib = library_times(torch, mk[:valid], q, ref_vals, kk)
+    bound, by = selection_bound(n, valid, k, fp32)
+    sel = dict(kernel="memory_topk_radix", case=label, n=n, valid=valid,
+               top_k=k, dead_slots=dead, max_abs_err=err, ids_differ=n_diff,
+               ms=split["all"], split_ms={x: split[x] for x in RADIX_KERNELS},
+               call_ms=cuda_ms(torch, call, 5),
+               plain_ms=cuda_ms(torch, lambda: K.topk_select_plain(
+                   q, mk, valid, k), 3),
+               library_ms=min(lib.values()), library_fp32_ms=lib["fp32"],
+               library_tf32_ms=lib["tf32"], bound_ms=bound, bound_by=by)
+    rows["selection"].append(sel)
+    print(f"[large-k] #1 {label}: max|dv|={err:.3g} ids_differ={n_diff} "
+          f"dead slots {dead}; device {sel['ms']:.3f} ms (radix "
+          f"{split['topk_radix_kernel']:.3f}, sort "
+          f"{split['topk_sort_chunks_kernel']:.3f}, merge "
+          f"{split['topk_rank_merge_kernel']:.3f}, transpose "
+          f"{split['topk_keys_t_kernel']:.3f}), {sel['call_ms']:.3f} ms a "
+          f"call, plain {sel['plain_ms']:.3f} ms, addmm+torch.topk "
+          f"{sel['library_ms']:.3f} ms (fp32 {lib['fp32']:.3f}, tf32 "
+          f"{lib['tf32']:.3f}), bound {bound:.4f} ms ({by})", flush=True)
+
+    ref = K.topk_readout_plain(mv, vals, idx)
+    out = K.topk_readout(mv, vals, idx)
+    if fp32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=FP32_READOUT_ATOL)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   rtol=READOUT_RTOL, atol=READOUT_ATOL)
+    if not torch.equal(K.topk_readout(mv, vals, idx), out):
+        fail(f"{label}: two runs of the readout differ")
+    w = softmax_weights(vals.T).to(mv.dtype).contiguous()
+    ids = idx.T.long().contiguous()
+    (rbound, rby), unique = readout_bound(idx, 1, vals, mv.element_size())
+    ro = dict(kernel="memory_readout_sliced", case=label, n=n, top_k=k,
+              max_abs_err=(out.float() - ref.float()).abs().max().item(),
+              ms=named_ms(torch, lambda: K.topk_readout(mv, vals, idx),
+                          {SLICED_KERNEL: 1})[SLICED_KERNEL],
+              call_ms=cuda_ms(torch, lambda: K.topk_readout(mv, vals, idx),
+                              10),
+              plain_ms=cuda_ms(torch, lambda: K.topk_readout_plain(
+                  mv, vals, idx), 3),
+              library_ms=device_ms(torch, lambda: torch.nn.functional
+                                   .embedding_bag(ids, mv[0], mode="sum",
+                                                  per_sample_weights=w)),
+              bound_ms=rbound, bound_by=rby, unique_rows=unique)
+    rows["readout"].append(ro)
+    print(f"[large-k] #2 {label}: max|d|={ro['max_abs_err']:.3g}; device "
+          f"{ro['ms']:.4f} ms, {ro['call_ms']:.3f} ms a call, plain "
+          f"{ro['plain_ms']:.3f} ms, embedding_bag {ro['library_ms']:.3f} "
+          f"ms, bound {rbound:.4f} ms ({rby}), unique rows {unique}",
+          flush=True)
+
+
+def large_k_kernels(torch):
+    """#1 and #2 above top_k 256 at N = N_QUERIES on the clustered banks
+    of FILLS (bf16, each LARGE_K; fp32 at LARGE_K_FP32), and #1's merge
+    passes on LARGE_K_MERGE, checked against the plain selection."""
+    from eva_vos_tpu_torch import kernels as K
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    qk = torch.randn((N_QUERIES, CK), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mv = torch.randn((1, max(FILLS) * HW_TOKENS, CV), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    rows = dict(selection=[], readout=[])
+    for fill in FILLS:
+        mk, valid = make_bank(torch, gen, qk, fill, clustered=True)
+        for k in LARGE_K:
+            large_k_case(torch, qk, mk, valid, mv, k,
+                         f"fill{fill}_clustered N={N_QUERIES} top_k={k} bf16",
+                         rows)
+        if fill == LARGE_K_FP32[0]:
+            k = LARGE_K_FP32[1]
+            large_k_case(torch, qk.float(), mk.float(), valid, mv.float(), k,
+                         f"fill{fill}_clustered N={N_QUERIES} top_k={k} fp32",
+                         rows)
+        del mk
+    n, m, k = LARGE_K_MERGE
+    q = torch.randn((n, CK), generator=gen, device=dev).to(torch.bfloat16)
+    mk = torch.randn((m, CK), generator=gen, device=dev).to(torch.bfloat16)
+    ref_vals, ref_idx = K.topk_select_plain(q, mk, m, k + 1)
+    vals, idx = K.topk_select(q, mk, m, k)
+    err, n_diff = check_selection(torch, vals, idx, ref_vals, ref_idx,
+                                  f"merge passes N={n} M={m} top_k={k}", k)
+    print(f"[large-k] #1 merge passes N={n} M={m} top_k={k} bf16: "
+          f"max|dv|={err:.3g} ids_differ={n_diff}", flush=True)
+    rows["merge"] = dict(n=n, m=m, top_k=k, max_abs_err=err,
+                         ids_differ=n_diff)
+    return rows
+
+
+def large_k_engine(torch, card, base, feats, pad, masks):
+    """Phase 6's engine at top_k LARGE_K_ENGINE: the fused read (#1 and #2
+    above 256) against the gather read on a frame-0 interact and on a
+    frame-30 interact from the fused frame-0 state; #1 and #2 as often as
+    in the same interacts at top_k 50 and no other kernel; LARGE_K_ITERS
+    untraced frame-0 interacts a read (fused at LARGE_K_ENGINE, gather at
+    LARGE_K_ENGINE, fused at top_k 50), interleaved."""
+    from eva_vos_tpu_torch.engine import InferenceEngine, pad_mask
+
+    cfg = base.config._replace(top_k=LARGE_K_ENGINE)
+    engines = {
+        "fused": InferenceEngine(base.stcn, base.fusion, cfg, device=DEVICE),
+        "gather": InferenceEngine(base.stcn, base.fusion,
+                                  cfg._replace(readout_strategy="gather"),
+                                  device=DEVICE),
+        "fused_k50": base}
+    counters = launch_counters()
+    state0 = base.init_state(feats, 1)
+    m0 = pad_mask(masks[:1, 0], pad, device=DEVICE)
+    m30 = pad_mask(masks[:1, 30], pad, device=DEVICE)
+
+    def interact(name, state, mask, idx):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = engines[name].interact(state, feats, mask, idx)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start, {
+            k: c.launches for k, c in counters.items()}
+
+    out0, counts0 = {}, {}
+    for name in engines:                                    # warm-up
+        out0[name], _, counts0[name] = interact(name, state0, m0, 0)
+    walls = {name: [] for name in engines}
+    for _ in range(LARGE_K_ITERS):
+        for name in engines:
+            out0[name], seconds, counts = interact(name, state0, m0, 0)
+            walls[name].append(seconds)
+            if counts != counts0[name]:
+                fail(f"[large-k engine] {name}: frame-0 launches {counts}, "
+                     f"then {counts0[name]}")
+    out30, counts30 = {}, {}
+    for name in engines:
+        out30[name], _, counts30[name] = interact(name, out0["fused"], m30, 30)
+    path = ("memory_topk", "memory_readout")
+    for frame, counts in ((0, counts0), (30, counts30)):
+        want = {k: counts["fused_k50"][k] if k in path else 0
+                for k in counters}
+        if counts["fused"] != want or min(want[k] for k in path) <= 0:
+            fail(f"[large-k engine] frame {frame}: top_k {LARGE_K_ENGINE} "
+                 f"launched {counts['fused']}, top_k 50 {counts['fused_k50']}")
+        if any(counts["gather"].values()):
+            fail(f"[large-k engine] frame {frame}: the gather read launched "
+                 f"{counts['gather']}")
+    checks = {}
+    for frame, out in ((0, out0), (30, out30)):
+        got, want = out["fused"].prob, out["gather"].prob
+        if not torch.isfinite(got).all():
+            fail(f"[large-k engine] frame {frame}: non-finite probabilities")
+        frac, dmax = prob_off(torch, got, want)
+        if frac > PROB_FRAC:
+            fail(f"[large-k engine] frame {frame}: fused vs gather {frac:.2e}"
+                 f" of probabilities off by > {PROB_ATOL}")
+        checks[frame] = dict(share_off=frac, max_abs_dp=dmax)
+    ms = {k: sorted(1e3 * x for x in v) for k, v in walls.items()}
+    print(f"[large-k engine] top_k {LARGE_K_ENGINE}: fused vs gather "
+          f"frame 0 max|dp|={checks[0]['max_abs_dp']:.3g} share > "
+          f"{PROB_ATOL}: {checks[0]['share_off']:.2e}, frame 30 max|dp|="
+          f"{checks[30]['max_abs_dp']:.3g} share "
+          f"{checks[30]['share_off']:.2e}; launches at frame 0 "
+          f"{ {k: v for k, v in counts0['fused'].items() if v} } (top_k 50: "
+          f"the same), at frame 30 "
+          f"{ {k: v for k, v in counts30['fused'].items() if v} }", flush=True)
+    print(f"[large-k engine] untraced frame-0 interact ms, {LARGE_K_ITERS} "
+          f"interleaved: " + ", ".join(
+              f"{k} median {statistics.median(v):.1f} (min {v[0]:.1f}, max "
+              f"{v[-1]:.1f})" for k, v in ms.items()) + f"; on {card}",
+          flush=True)
+    return dict(top_k=LARGE_K_ENGINE, ms=ms, checks=checks,
+                launches0=counts0["fused"], launches30=counts30["fused"])
+
+
+def large_k_cli(torch, card, images, masks):
+    """The eval CLI's ``main`` with ``--top-k LARGE_K_ENGINE`` (oracle_mask,
+    LARGE_K_ROUNDS rounds, fp32) on phase 11's one-video DAVIS_17 tree: it
+    completes, #1 and #2 launch every round and no other kernel, and its
+    CSV equals a direct call on an engine at the same top_k (annotation
+    times exactly, ``mu_metric`` within CLI_MU_ATOL)."""
+    import os
+    import tempfile
+
+    from eva_vos_tpu_torch import interactions as I
+    from eva_vos_tpu_torch.cli import eval_annotation_method as cli
+    from eva_vos_tpu_torch.data.datasets import AnnotationDataset
+    from eva_vos_tpu_torch.engine import EngineConfig, InferenceEngine
+    from eva_vos_tpu_torch.utils import model_zoo
+    from eva_vos_tpu_torch.utils.table import read_columns
+
+    env_keys = ("EVAVOS_DATA_ROOT", "EVAVOS_WEIGHTS_ROOT",
+                "EVAVOS_NUM_PROCESSES")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    deterministic = torch.backends.cudnn.deterministic
+    counters = launch_counters()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    try:
+        torch.backends.cudnn.deterministic = True
+        os.environ["EVAVOS_DATA_ROOT"] = str(root / "data")
+        os.environ["EVAVOS_WEIGHTS_ROOT"] = str(root / "weights")
+        os.environ.pop("EVAVOS_NUM_PROCESSES", None)
+        (root / "weights").mkdir()
+        write_davis_tree(root / "data", images, masks)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        path = Path(cli.main([
+            "--policy", "oracle_mask", "--rounds", str(LARGE_K_ROUNDS),
+            "--db", "DAVIS_17", "--allow-random", "--top-k",
+            str(LARGE_K_ENGINE), "--out-dir", str(root / "exp"), "--device",
+            DEVICE]))
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - start
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        if set(launches) != {"memory_topk", "memory_readout"} or min(
+                launches.values()) < LARGE_K_ROUNDS:
+            fail(f"[large-k cli] launched {launches} in {LARGE_K_ROUNDS} "
+                 f"rounds")
+        table = read_columns(path)
+        sample = AnnotationDataset(
+            root / "data" / "DAVIS_17",
+            root / "data" / "DAVIS_17" / "ImageSets" / "2017" / "val.txt")[0]
+        engine = InferenceEngine(
+            model_zoo.load_stcn(allow_random=True, device=DEVICE),
+            model_zoo.load_fusion(allow_random=True, device=DEVICE),
+            EngineConfig(top_k=LARGE_K_ENGINE,
+                         max_interactions=LARGE_K_ROUNDS + 2), device=DEVICE)
+        mus, times = I.oracle_mask(LARGE_K_ROUNDS, engine, sample, "j_and_f")
+        d_mu = max(abs(float(a) - b) for a, b in zip(table["mu_metric"], mus))
+        print(f"[large-k cli] --top-k {LARGE_K_ENGINE}: main {main_s:.2f} s, "
+              f"{len(table['video'])} rows, launches {launches}; against the "
+              f"direct call: times {table['annotation_time']} / {times}, "
+              f"largest |d mu_metric| {d_mu:.3g}; on {card}", flush=True)
+        if [float(x) for x in table["annotation_time"]] != \
+                [float(x) for x in times]:
+            fail(f"[large-k cli] annotation times {table['annotation_time']}"
+                 f", direct {times}")
+        if len(mus) != len(table["mu_metric"]) or d_mu > CLI_MU_ATOL:
+            fail(f"[large-k cli] mu_metric {table['mu_metric']}, direct {mus}")
+        return dict(main_s=main_s, launches=launches, d_mu=d_mu,
+                    mu=table["mu_metric"], direct_mu=mus)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+
+
+def large_k_phase(torch, results, card, base, feats, pad, images, masks):
+    """Phase 6c: the default read above top_k 256 (kernels, engine, CLI).
+    Returns the large-k kernels' launches on the engine's fused interacts
+    (the warm-up and the timed ones at frame 0, one at frame 30)."""
+    phase_start = time.perf_counter()
+    out = large_k_kernels(torch)
+    out["engine"] = large_k_engine(torch, card, base, feats, pad, masks)
+    out["cli"] = large_k_cli(torch, card, images, masks)
+    out["phase_s"] = time.perf_counter() - phase_start
+    print(f"[large-k] the phase took {out['phase_s']:.1f} s on {card}",
+          flush=True)
+    results["large_k"] = out
+    e = out["engine"]
+    runs = LARGE_K_ITERS + 1
+    return {"memory_topk_radix": runs * e["launches0"]["memory_topk"]
+            + e["launches30"]["memory_topk"],
+            "memory_readout_sliced": runs * e["launches0"]["memory_readout"]
+            + e["launches30"]["memory_readout"]}
 
 
 def resize_phase(torch, results):
@@ -3007,7 +3385,7 @@ def kernels_line(results, launches):
     library time and bound at a 72-slot clustered bank (N = 8100; readouts
     K = 1), its largest error over all cases, and its launches on the engine
     read that runs it (on the entry-point phase for the kernels that no
-    engine read runs)."""
+    engine read runs); then the large-k paths of #1 and #2 (phase 6c)."""
 
     def row(name, rows):
         readout = "topk" not in name
@@ -3025,8 +3403,26 @@ def kernels_line(results, launches):
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"]}
 
+    def large_k_row(name):
+        """A large-k path's entry: its times at the fullest clustered bank
+        at top_k LARGE_K[0] in bf16, its largest error over all cases, its
+        launches on phase 6c's fused interacts."""
+        base = LARGE_K_LINE[name]
+        mine = results["large_k"]["selection" if "topk" in name
+                                  else "readout"]
+        head = next(r for r in mine if r["case"] == (
+            f"fill{max(FILLS)}_clustered N={N_QUERIES} top_k={LARGE_K[0]} "
+            f"bf16"))
+        return {"name": name, "route": "cuda",
+                "source": f"eva_vos_tpu_torch/kernels/csrc/{SOURCES[base]}",
+                "replaces": REPLACES[base], "launches": launches[name],
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"]}
+
     return [row(name, results["selection" if "topk" in name else "readout"])
-            for name in REPLACES]
+            for name in REPLACES] + [large_k_row(name) for name in LARGE_K_LINE]
 
 
 def main() -> int:
@@ -3070,9 +3466,13 @@ def main() -> int:
     results = {"card": card, "build_s": build_s, "hmma": hmma}
     kernel_phases(torch, results)
     entry_launches = entry_phase(torch, results)
-    launches, (engine, images, masks) = engine_phase(torch, results, card)
+    launches, (engine, images, masks), (feats, pad) = engine_phase(
+        torch, results, card)
     launches.update(entry_launches)
     step_phase(torch, results, card)
+    launches.update(large_k_phase(torch, results, card, engine, feats, pad,
+                                  images, masks))
+    del feats
     resize_phase(torch, results)
     policy_phase(torch, results, card, engine, images, masks)
     predictor = decision_sam_phase(torch, results, card, engine, images,

@@ -28,9 +28,9 @@ import torch
 from ..ops.memory_attention import softmax_weights, weighted_gather
 from . import build
 from .config import KernelConfig
-from .memory_topk import (_DTYPES, SELECTORS, _I, _P, _bind, _check_counter,
-                          _check_operand, _ptr, _sm_count, _stream,
-                          topk_select_plain)
+from .memory_topk import (_DTYPES, PRUNED_MAX_K, SELECTORS, _I, _P, _bind,
+                          _check_counter, _check_operand, _ptr, _sm_count,
+                          _stream, topk_select_plain)
 
 
 def topk_readout_plain(mv, vals, idx):
@@ -144,7 +144,9 @@ def _chunked_lib() -> ctypes.CDLL:
                  [_P] * 4 + [_I] * 9 + [_P, _P])
 
 
-def _check_readout(mv, vals, idx):
+def _check_readout(mv, vals, idx, most: int | None = None):
+    """Check a readout kernel's operands, top_k in [1, most] (``most``
+    None: any top_k >= 1)."""
     _check_operand("mv", mv)
     if mv.shape[2] % 8:
         raise ValueError(f"value width {mv.shape[2]} must be a multiple of 8")
@@ -154,14 +156,19 @@ def _check_readout(mv, vals, idx):
             or idx.device != mv.device):
         raise ValueError("vals/idx must be contiguous [top_k, N] fp32/int32 "
                          "on mv's device")
-    if not 1 <= vals.shape[0] <= 256:
-        raise ValueError(f"top_k={vals.shape[0]} must be in [1, 256]")
+    top_k = vals.shape[0]
+    if top_k < 1:
+        raise ValueError(f"top_k={top_k} must be at least 1")
+    if most is not None and top_k > most:
+        raise ValueError(f"top_k={top_k} must be in [1, {most}]: this "
+                         f"readout takes at most {most}")
 
 
 def topk_readout(mv: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor):
     """Readout, one value row per (query, slot); CPU tensors take the plain
     version (topk_readout_plain), CUDA tensors the kernel (which raises on
-    any launch error).  Every id must be < M and top_k in [1, 256]."""
+    any launch error).  Every id must be < M; any top_k >= 1 (above 256
+    the kernel stages the slots in slices of 256)."""
     if mv.device.type == "cpu":
         return topk_readout_plain(mv, vals, idx)
     _check_readout(mv, vals, idx)
@@ -185,12 +192,12 @@ def topk_readout_chunked(mv: torch.Tensor, vals: torch.Tensor,
     each distinct row once, walking the value bank in 1,024-token chunks
     and skipping those no selected id lands in (``no_skip`` visits every
     one, the same output bit for bit).  The contract and plain version of
-    :func:`topk_readout`.  ``staged_rows``, a CUDA int32 tensor of one
-    element, gains the rows the kernel staged (:func:`readout_staged_rows`
-    counts them)."""
+    :func:`topk_readout`, top_k in [1, 256].  ``staged_rows``, a CUDA int32
+    tensor of one element, gains the rows the kernel staged
+    (:func:`readout_staged_rows` counts them)."""
     if mv.device.type == "cpu":
         return topk_readout_plain(mv, vals, idx)
-    _check_readout(mv, vals, idx)
+    _check_readout(mv, vals, idx, PRUNED_MAX_K)
     _check_counter(staged_rows, mv, "staged_rows")
     n_obj, m, cv = mv.shape
     top_k, n = vals.shape
@@ -225,7 +232,9 @@ def fused_readout(mk, qk, mv, top_k: int, valid_tokens=None,
     kernel, chosen by ``kcfg`` as ``pallas_fused_readout`` chooses them
     (``eva_vos_tpu/kernels/memory_readout.py:369-371, 403-407``): selection
     'tournament' (default), 'chunked' or 'resident'; readout 'grid'
-    (default) or 'chunked'.  An unknown method raises.
+    (default) or 'chunked'.  An unknown method raises.  On the card the
+    default kernels take any top_k in [1, M]; the other methods take
+    [1, min(M, 256)] and raise above it.
 
     mk [M, CK], qk [N, CK], mv [K, M, CV] -> [K, N, CV] in mv.dtype.
     """

@@ -7,7 +7,11 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
   per-block pruning and ranking as in the sort kernel (the shared
   ``csrc/topk_prune.cuh``), then a merge that writes the transposed layout,
   kernels ``csrc/memory_topk.cu:topk_prune_block_kernel`` and
-  ``topk_merge_t_kernel``; :func:`merge_lists_t` states the merge;
+  ``topk_merge_t_kernel``; :func:`merge_lists_t` states the merge.  Above
+  top_k = 256 (any top_k up to M) a radix select over the same scores,
+  sorted and transposed (``topk_radix_kernel``, ``topk_sort_chunks_kernel``,
+  ``topk_rank_merge_kernel``, ``topk_keys_t_kernel``);
+  :func:`radix_threshold` and :func:`radix_lists` state it;
 * :func:`topk_select_chunked` — ``chunked_topk_t``
   (``_kernel_tournament_chunked``), the same kernels with the bank blocks
   newest first and a running floor per query in place of the TPU kernel's
@@ -41,7 +45,9 @@ mk [M, CK] in fp32 or bf16 (the kernels take CK = 64) ->
 (vals [top_k, N] fp32 raw scores in descending order, idx [top_k, N] int32),
 over tokens < ``valid_tokens``, ties to the lowest id.  Where
 valid_tokens < top_k the trailing slots hold -1e30 with unspecified (but
-in-range) ids; their softmax weight is exactly 0.  Their plain version is
+in-range) ids; their softmax weight is exactly 0.  On the card
+:func:`topk_select` takes top_k in [1, M]; every other selection takes
+[1, min(M, 256)] (PRUNED_MAX_K) and raises above it.  Their plain version is
 :func:`topk_select_plain`.  The row selectors (grid, iterative, sort) return
 the same selection as [N, top_k] softmax weights (or raw scores with
 ``return_raw``) and int32 ids; their plain version is
@@ -66,6 +72,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SELECT_BLOCK = 2048  # bank tokens per block of the block selections
 _MAX_LISTS = 2048     # memory_topk.cu's kMaxLists: bank blocks it merges
 _MAX_ROW_LISTS = 6000  # topk_prune.cuh's kMaxRowLists: the row merge's lists
+PRUNED_MAX_K = 256  # the largest top_k of every selection kernel but the
+#                     default one's large-k path
+RADIX_SORT_CHUNK = 8192  # memory_topk.cu's kSortChunk: keys sorted in shared
+#                          memory; longer lists take merge passes
 
 
 def topk_select_plain(qk, mk, valid_tokens, top_k: int):
@@ -90,6 +100,8 @@ def _lib() -> ctypes.CDLL:
                 [_P] * 4 + [_I] * 5 + [_P] * 3)
     lib.memory_topk_chunked_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P] * 5
     lib.memory_topk_chunked_launch.restype = ctypes.c_int
+    lib.memory_topk_radix_launch.argtypes = [_P] * 4 + [_I] * 5 + [_P] * 3
+    lib.memory_topk_radix_launch.restype = ctypes.c_int
     return lib
 
 
@@ -125,8 +137,10 @@ def _check_operand(name, x, dtype=None):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_selection(qk, mk, valid_tokens, top_k: int) -> int:
-    """Check a kernel's operands; returns the number of valid tokens."""
+def _check_selection(qk, mk, valid_tokens, top_k: int,
+                     most: int | None = PRUNED_MAX_K) -> int:
+    """Check a kernel's operands, top_k in [1, min(M, most)] (``most``
+    None: [1, M]); returns the number of valid tokens."""
     n, ck = qk.shape
     m = mk.shape[0]
     _check_operand("qk", qk)
@@ -134,8 +148,11 @@ def _check_selection(qk, mk, valid_tokens, top_k: int) -> int:
     if ck != _CK or mk.shape[1] != _CK:
         raise ValueError(f"keys must be {_CK} wide: qk {tuple(qk.shape)}, "
                          f"mk {tuple(mk.shape)}")
-    if not 0 < top_k <= min(m, 256):
-        raise ValueError(f"top_k={top_k} must be in [1, min(M={m}, 256)]")
+    if most is None and not 0 < top_k <= m:
+        raise ValueError(f"top_k={top_k} must be in [1, M={m}]")
+    if most is not None and not 0 < top_k <= min(m, most):
+        raise ValueError(f"top_k={top_k} must be in [1, min(M={m}, {most})]"
+                         f": this selection takes at most {most}")
     return m if valid_tokens is None else max(0, min(int(valid_tokens), m))
 
 
@@ -203,9 +220,13 @@ def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     transposed outputs; with one live block the block kernel writes them
     and no merge runs (plain: topk_select_plain).  ``escalations``, a CUDA
     int32 tensor of one element, gains the number of (query, bank block)
-    rows that took the exact escalation."""
+    rows that took the exact escalation.  Above PRUNED_MAX_K, any top_k up
+    to M takes the radix select (:func:`radix_lists` states it), which
+    escalates no row."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
+    if top_k > PRUNED_MAX_K:
+        return _topk_select_radix(qk, mk, valid_tokens, top_k, escalations)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
     _check_counter(escalations, qk)
     part = _block_lists(qk, _check_lists(valid, _MAX_LISTS), top_k)
@@ -215,6 +236,27 @@ def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         qk.shape[0], valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk),
         _ptr(part), _ptr(escalations))
+    build.check("memory_topk", lib, status)
+    topk_select.launches += 1
+    return vals, idx
+
+
+def _topk_select_radix(qk, mk, valid_tokens, top_k: int, escalations):
+    """:func:`topk_select` above PRUNED_MAX_K: the radix select, its keys'
+    sort (with merge passes above RADIX_SORT_CHUNK keys) and the transposed
+    write, kernels of ``csrc/memory_topk.cu``."""
+    valid = _check_selection(qk, mk, valid_tokens, top_k, most=None)
+    _check_counter(escalations, qk)
+    n, kk = qk.shape[0], min(top_k, valid)
+    keys = (torch.empty((n, kk), dtype=torch.int64, device=qk.device)
+            if kk else None)
+    keys2 = torch.empty_like(keys) if kk > RADIX_SORT_CHUNK else None
+    vals, idx = _transposed_outputs(qk, top_k)
+    lib = _lib()
+    status = lib.memory_topk_radix_launch(
+        qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(), n,
+        valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk), _ptr(keys),
+        _ptr(keys2))
     build.check("memory_topk", lib, status)
     topk_select.launches += 1
     return vals, idx
@@ -435,6 +477,66 @@ def merge_lists_t(lists: torch.Tensor, top_k: int):
 
 
 DEAD_KEY = -2 ** 63  # the kernels' key 0 (sort_keys' shift): an empty slot
+
+RADIX_BITS = 8  # memory_topk.cu's digit: four passes over the 32 score bits
+
+
+def _ords(keys: torch.Tensor) -> torch.Tensor:
+    """The keys' score bits (ord, the kernels' unsigned high word) as int64
+    in [0, 2^32); 0 for a dead key."""
+    return (keys >> 32) + 2 ** 31
+
+
+def radix_threshold(keys: torch.Tensor, valid: int, top_k: int):
+    """Plain statement of the large-k selection's digits over keys
+    [N, >= valid] (:func:`sort_keys`; tokens past ``valid`` never count)
+    -> (tau [N], the ord of each query's kk-th largest key, kk =
+    min(top_k, valid) >= 1; need [N], how many keys of ord tau are among
+    its top kk).  Four passes of RADIX_BITS from the top: each counts, in
+    256 bins, the next digit of the live ords that agree with the digits
+    chosen so far, and chooses the bin at which the counts from the top
+    reach the rank still sought, which becomes the rank within that bin."""
+    ords = _ords(keys[:, :valid])
+    n = ords.shape[0]
+    prefix = torch.zeros(n, dtype=torch.int64)
+    rank = torch.full((n,), min(top_k, valid), dtype=torch.int64)
+    bins = 2 ** RADIX_BITS
+    for shift in range(32 - RADIX_BITS, -1, -RADIX_BITS):
+        agree = (ords >> (shift + RADIX_BITS)) == prefix[:, None]
+        digit = (ords >> shift) & (bins - 1)
+        hist = torch.zeros((n, bins), dtype=torch.int64).scatter_add_(
+            1, digit, agree.long())
+        from_top = hist.flip(1).cumsum(1)                # bins 255, 254, ...
+        pos = (from_top >= rank[:, None]).long().argmax(1)
+        chosen = bins - 1 - pos
+        above = from_top.gather(1, pos[:, None])[:, 0] - hist.gather(
+            1, chosen[:, None])[:, 0]
+        prefix = prefix * bins + chosen
+        rank = rank - above
+    return prefix, rank
+
+
+def radix_lists(keys: torch.Tensor, valid: int, top_k: int):
+    """Plain statement of the large-k selection over keys [N, >= valid]
+    (:func:`sort_keys`) -> (vals [top_k, N], idx [top_k, N]), as the
+    kernels write them.  With :func:`radix_threshold`'s (tau, need), the
+    compaction keeps every key of ord > tau and, of the keys of ord tau,
+    the first ``need`` in id order (a running count over the bank): ties
+    at tau go to the lowest ids.  The kk = min(top_k, valid) keys kept are
+    sorted descending; the slots from kk hold (-1e30, 0)."""
+    n, kk = keys.shape[0], min(top_k, valid)
+    lists = torch.full((n, top_k), DEAD_KEY, dtype=torch.int64)
+    if kk:
+        tau, need = radix_threshold(keys, valid, top_k)
+        live = keys[:, :valid]
+        ords = _ords(live)
+        tied = ords == tau[:, None]
+        taken = (ords > tau[:, None]) | (
+            tied & (tied.long().cumsum(1) <= need[:, None]))
+        kept = torch.where(taken, live, torch.full_like(live, DEAD_KEY))
+        lists[:, :kk] = kept.topk(kk, dim=1).values
+    vals, idx = unpack_keys(lists)
+    return vals.T.contiguous(), idx.T.contiguous()
 
 
 def floored_lists(keys: torch.Tensor, top_k: int,

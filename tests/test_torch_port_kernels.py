@@ -33,6 +33,7 @@ from eva_vos_tpu_torch.kernels import (KernelConfig, build, fused_readout,
 from eva_vos_tpu_torch.kernels.memory_readout import (readout_geometry,
                                                       readout_staged_rows)
 from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
+                                                   RADIX_SORT_CHUNK,
                                                    SORT_CAPACITY,
                                                    iter_segments,
                                                    resident_lists,
@@ -824,3 +825,161 @@ def test_engine_on_card_matches_plain_read(cuda, block_frames):
             assert topk_select.launches > before
         probs.append(state.prob)
     torch.testing.assert_close(probs[0], probs[1], rtol=0, atol=1e-4)
+
+
+# The default read above top_k = 256: #1's radix select (with merge passes
+# above RADIX_SORT_CHUNK keys a query) and #2's sliced staging.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", [3000, 1700, 20])
+@pytest.mark.parametrize("top_k", [257, 512, 2048, 3000])
+def test_topk_select_large_k(cuda, dtype, valid, top_k):
+    """#1 above 256 against the plain version: M = 3,000 (top_k = M takes
+    the whole bank), fills of two bank blocks, one (no second block) and
+    fewer valid tokens than top_k; ids may differ only at near-ties; the
+    slots from the valid tokens hold (-1e30, 0); no escalation."""
+    g = torch.Generator(device=cuda).manual_seed(valid + top_k)
+    qk = torch.randn((333, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((3000, 64), generator=g, device=cuda).to(dtype)
+    esc = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = topk_select.launches
+    vals, idx = topk_select(qk, mk, valid, top_k, escalations=esc)
+    torch.cuda.synchronize()
+    assert topk_select.launches == before + 1 and int(esc) == 0
+    assert vals.shape == idx.shape == (top_k, 333) and idx.dtype == torch.int32
+    pv, pi = topk_select_plain(qk, mk, valid, top_k + 1)
+    live = min(valid, top_k)
+    _assert_same_selection(vals[:live].T, idx[:live].T, pv[:live + 1].T,
+                           pi[:live + 1].T, 1e-4)
+    assert torch.all(vals[live:] == -1e30) and torch.all(idx[live:] == 0)
+    assert int(idx.min()) >= 0 and int(idx.max()) < max(valid, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [257, 2048, 4500])
+def test_topk_select_large_k_identical_keys(cuda, dtype, top_k):
+    """Every score of a row ties: the top k are ids 0..k-1 across the three
+    bank blocks of a 4,500-token fill."""
+    rng = np.random.default_rng(8)
+    mk = torch.from_numpy(np.tile(rng.standard_normal((1, 64)), (5000, 1))
+                          .astype(np.float32)).to(cuda, dtype)
+    qk = torch.from_numpy(rng.standard_normal((45, 64)).astype(np.float32)
+                          ).to(cuda, dtype)
+    _, idx = topk_select(qk, mk, 4500, top_k)
+    want = torch.arange(top_k, dtype=torch.int32, device=cuda)
+    assert torch.equal(idx, want[:, None].expand(top_k, 45))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", [1990, 4990])
+@pytest.mark.parametrize("top_k", [257, 1000, 1990])
+def test_topk_select_large_k_ties_at_threshold(cuda, dtype, valid, top_k):
+    """Each of 40 keys 125 times over the bank: the threshold falls inside a
+    run of exactly tied scores, within one bank block (1,990 tokens) and
+    across three (4,990); the tied keys taken are the lowest ids."""
+    rng = np.random.default_rng(2)
+    base = rng.standard_normal((40, 64)).astype(np.float32)
+    mk = torch.from_numpy(np.tile(base, (125, 1))).to(cuda, dtype)
+    qk = torch.from_numpy(rng.standard_normal((70, 64)).astype(np.float32)
+                          ).to(cuda, dtype)
+    _, idx = topk_select(qk, mk, valid, top_k)
+    np.testing.assert_array_equal(idx.cpu().numpy(),
+                                  _oracle_topk(qk, mk, valid, top_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid,top_k", [(20000, RADIX_SORT_CHUNK + 1),
+                                         (20000, 20000), (40000, 33000)])
+def test_topk_select_large_k_merge_passes(cuda, dtype, valid, top_k):
+    """More keys a query than one block sorts in shared memory: sorted runs
+    of RADIX_SORT_CHUNK keys merged in device memory (two runs, three, and
+    five over three passes)."""
+    g = torch.Generator(device=cuda).manual_seed(top_k)
+    qk = torch.randn((40, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((40000, 64), generator=g, device=cuda).to(dtype)
+    vals, idx = topk_select(qk, mk, valid, top_k)
+    pv, pi = topk_select_plain(qk, mk, valid, top_k + 1)
+    live = min(valid, top_k)
+    _assert_same_selection(vals[:live].T, idx[:live].T, pv[:live + 1].T,
+                           pi[:live + 1].T, 1e-4)
+    assert torch.all(vals[live:] == -1e30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [257, 3000])
+def test_topk_select_large_k_empty_bank(cuda, top_k):
+    qk = torch.randn((50, 64), device=cuda).to(torch.bfloat16)
+    mk = torch.randn((3000, 64), device=cuda).to(torch.bfloat16)
+    vals, idx = topk_select(qk, mk, 0, top_k)
+    assert torch.all(vals == -1e30) and torch.all(idx == 0)
+
+
+# (kind, N, M, CV, top_k, valid, K, dtype) above 256: staged in slices of
+# 256 slots (two, and eight with a ragged last one), valid < top_k, K = 2,
+# CV 64, 512 and 1,024
+LARGE_K_READOUT_CASES = [
+    ("random", 300, 5000, 512, 512, 4000, 1, torch.bfloat16),
+    ("random", 300, 5000, 512, 512, 4000, 2, torch.float32),
+    ("random", 200, 5000, 1024, 2000, 4000, 1, torch.bfloat16),
+    ("random", 130, 3000, 64, 2048, 1500, 2, torch.float32),
+    ("ties", 100, 3000, 64, 257, 3000, 1, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LARGE_K_READOUT_CASES, ids=str)
+def test_topk_readout_large_k(cuda, case):
+    """#2 above 256 against the plain version; two runs equal bit for bit;
+    the chunked readout keeps its cap and names it."""
+    kind, n, m, cv, top_k, valid, k_obj, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(n + cv)
+    mv = torch.randn((k_obj, m, cv), generator=g, device=cuda).to(dtype)
+    vals, idx = _readout_selection(kind, n, m, top_k, valid, cuda)
+    before = topk_readout.launches
+    out = topk_readout(mv, vals, idx)
+    torch.cuda.synchronize()
+    assert topk_readout.launches == before + 1
+    _assert_readout_close(out, topk_readout_plain(mv, vals, idx))
+    assert torch.equal(topk_readout(mv, vals, idx), out)
+    with pytest.raises(ValueError, match="at most 256"):
+        topk_readout_chunked(mv, vals, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [300, 1000])
+def test_fused_readout_large_k(cuda, dtype, top_k):
+    """The default fused read above 256 (#1 then #2) against the plain
+    fused read, with valid below and above top_k."""
+    g = torch.Generator(device=cuda).manual_seed(top_k)
+    mk = torch.randn((3000, 64), generator=g, device=cuda).to(dtype)
+    qk = torch.randn((200, 64), generator=g, device=cuda).to(dtype)
+    mv = torch.randn((2, 3000, 64), generator=g, device=cuda).to(dtype)
+    for valid in (250, 3000):
+        got = fused_readout(mk, qk, mv, top_k, valid)
+        _assert_readout_close(got, fused_readout_plain(mk, qk, mv, top_k,
+                                                       valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select", ["chunked", "resident", "grid", "iterative",
+                                    "sort"])
+def test_other_selections_raise_above_256(cuda, select):
+    """Every selection but the default one keeps [1, min(M, 256)] and names
+    the cap; so do the fused reads on the other kernels."""
+    qk = torch.randn((40, 64), device=cuda).to(torch.bfloat16)
+    mk = torch.randn((3000, 64), device=cuda).to(torch.bfloat16)
+    mv = torch.randn((1, 3000, 64), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="256"):
+        select_topk(mk, qk, 257, 3000, method=select)
+    if select in ("chunked", "resident"):
+        with pytest.raises(ValueError, match="256"):
+            fused_readout(mk, qk, mv, 257, 3000,
+                          KernelConfig(sel_method=select))
+    with pytest.raises(ValueError, match="256"):
+        fused_readout(mk, qk, mv, 257, 3000,
+                      KernelConfig(readout_method="chunked"))
