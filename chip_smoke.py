@@ -74,9 +74,12 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    staging): #1 on the clustered banks of FILLS at N = 8100, top_k 512 and
    2,048 in bf16 and 512 in fp32 at fill 12, against the plain selection
    (``check_selection``'s rule; the slots past the live tokens (-1e30, 0)),
-   and #2 on its picks against the plain readout, each with its device
-   ms split per kernel, plain and library times and bound; #1's merge
-   passes (top_k 20,000); phase 6's engine at top_k 512, fused against
+   with its queries whose first bin overflowed the candidate cap and the
+   most scorings of the bank a query tile took, and #2 on its picks
+   against the plain readout, each with its device ms split per kernel,
+   plain and library times and bound; #1 at top_k 50 on the fill-72 bank
+   beside them (the kernels of the same file); #1's merge passes (top_k
+   20,000); phase 6's engine at top_k 512, fused against
    gather at frame 0 and frame 30 (within PROB_ATOL / PROB_FRAC), #1 and #2
    exactly as often as at top_k 50 and no other kernel, LARGE_K_ITERS
    interleaved frame-0 interacts a read; the eval CLI with ``--top-k 512``
@@ -171,7 +174,9 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    with ``readout_strategy="sharded"`` on a one-process NCCL group, its
    interacts at PARALLEL_FRAMES against the 'fused' engine's (within
    PROB_ATOL / PROB_FRAC), #1 launched once for every sharded read, the
-   untraced interact ms and the collective bytes; (b) the same episode in
+   untraced interact ms and the collective bytes, and the same at top_k
+   LARGE_K_ENGINE (#1's large-k path as the local selection) against the
+   fused engine at that top_k; (b) the same episode in
    two processes sharing the card over gloo against (a)'s (each rank's
    bank half of (a)'s, its collective bytes the same on its whole bank and
    on a quarter of it and within 4x ``comm_model_bytes``), the
@@ -298,8 +303,12 @@ LARGE_K_ENGINE = 512
 LARGE_K_ITERS = 5
 LARGE_K_ROUNDS = 3
 # the large-k path's kernels, as a trace names them
-RADIX_KERNELS = ("topk_radix_kernel", "topk_sort_chunks_kernel",
-                 "topk_rank_merge_kernel", "topk_keys_t_kernel")
+RADIX_KERNELS = ("topk_key_norms_kernel", "topk_radix_kernel",
+                 "topk_cand_select_kernel", "topk_sort_rows_kernel",
+                 "topk_sort_chunks_kernel", "topk_rank_merge_kernel",
+                 "topk_keys_t_kernel")
+# #1's kernels at top_k <= 256
+PRUNED_KERNELS = ("topk_prune_block_kernel", "topk_merge_t_kernel")
 SLICED_KERNEL = "readout_sliced_kernel"
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
@@ -1295,30 +1304,34 @@ def step_trace(torch, step, args) -> dict:
             "readout_ms": ms("readout_kernel")}
 
 
-def named_ms(torch, fn, per_call: dict, reps: int = 5) -> dict:
+def named_ms(torch, fn, per_call: dict, reps: int = 5,
+             tries: int = 3) -> dict:
     """Device ms a call of ``fn`` of each kernel whose name holds a key of
     ``per_call`` (its launches a call), from a ``torch.profiler`` trace of
     ``reps`` calls: the mean time of its events times its launches a call
-    (a trace may miss an event), and "all", their sum."""
+    (a trace may miss an event), and "all", their sum.  A trace that holds
+    no event of a launched kernel (the profiler has dropped all of a
+    kernel of a few microseconds) is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [(e.name, e.time_range.end - e.time_range.start)
-          for e in prof.events() if e.device_type == DeviceType.CUDA]
-    out = {}
-    for k, launches in per_call.items():
-        mine = [t for n, t in us if k in n]
-        if launches and not mine:
-            fail(f"the profiler's trace of {reps} calls holds no {k}")
-        out[k] = sum(mine) / max(1, len(mine)) * launches / 1e3
-    out["all"] = sum(out.values())
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [(e.name, e.time_range.end - e.time_range.start)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mine = {k: [t for n, t in us if k in n] for k in per_call}
+        missing = [k for k, n in per_call.items() if n and not mine[k]]
+        if not missing:
+            out = {k: sum(mine[k]) / max(1, len(mine[k])) * n / 1e3
+                   for k, n in per_call.items()}
+            out["all"] = sum(out.values())
+            return out
+    fail(f"the profiler's traces of {reps} calls hold no {missing}")
 
 
 def large_k_case(torch, q, mk, valid, mv, k, label, rows):
@@ -1327,14 +1340,18 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
     and #2 on its picks against the plain readout, both timed beside
     their plain versions, library calls and bounds."""
     from eva_vos_tpu_torch import kernels as K
-    from eva_vos_tpu_torch.kernels.memory_topk import RADIX_SORT_CHUNK
+    from eva_vos_tpu_torch.kernels.memory_topk import (RADIX_ROW_SORT,
+                                                       RADIX_SORT_CHUNK)
     from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
 
     fp32 = q.dtype == torch.float32
     n = q.shape[0]
     ref_vals, ref_idx = K.topk_select_plain(q, mk, valid, k + 1)
     K.topk_select.launches = 0
-    vals, idx = K.topk_select(q, mk, valid, k)
+    overflow, scorings = (torch.zeros(1, dtype=torch.int32, device=q.device)
+                          for _ in range(2))
+    vals, idx = K.topk_select(q, mk, valid, k, escalations=overflow,
+                              scorings=scorings)
     torch.cuda.synchronize()
     if K.topk_select.launches != 1:
         fail(f"{label}: topk_select launched {K.topk_select.launches} times")
@@ -1348,14 +1365,19 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
              f"(-1e30, 0)")
     call = lambda: K.topk_select(q, mk, valid, k)  # noqa: E731
     merges = max(0, math.ceil(math.log2(-(-kk // RADIX_SORT_CHUNK))))
+    rows_sort = 0 < kk <= RADIX_ROW_SORT  # a warp a query
     split = named_ms(torch, call, dict(zip(RADIX_KERNELS, (
-        int(kk > 0), int(kk > 0), merges, 1))))
+        int(kk > 0), int(kk > 0), int(0 < kk < valid), int(rows_sort),
+        int(kk > 0 and not rows_sort), merges, 1))))
+    sort_ms = (split["topk_sort_rows_kernel"]
+               + split["topk_sort_chunks_kernel"])
     # the library call selects the live kk (torch.topk takes no k above
     # the valid tokens; the dead slots are constants)
     lib = library_times(torch, mk[:valid], q, ref_vals, kk)
     bound, by = selection_bound(n, valid, k, fp32)
     sel = dict(kernel="memory_topk_radix", case=label, n=n, valid=valid,
                top_k=k, dead_slots=dead, max_abs_err=err, ids_differ=n_diff,
+               overflow_queries=int(overflow), scorings=int(scorings),
                ms=split["all"], split_ms={x: split[x] for x in RADIX_KERNELS},
                call_ms=cuda_ms(torch, call, 5),
                plain_ms=cuda_ms(torch, lambda: K.topk_select_plain(
@@ -1364,9 +1386,12 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
                library_tf32_ms=lib["tf32"], bound_ms=bound, bound_by=by)
     rows["selection"].append(sel)
     print(f"[large-k] #1 {label}: max|dv|={err:.3g} ids_differ={n_diff} "
-          f"dead slots {dead}; device {sel['ms']:.3f} ms (radix "
-          f"{split['topk_radix_kernel']:.3f}, sort "
-          f"{split['topk_sort_chunks_kernel']:.3f}, merge "
+          f"dead slots {dead}; {sel['scorings']} scorings of the bank, "
+          f"{sel['overflow_queries']} queries past the cap; device "
+          f"{sel['ms']:.3f} ms (norms {split['topk_key_norms_kernel']:.4f}, "
+          f"radix {split['topk_radix_kernel']:.3f}, candidates "
+          f"{split['topk_cand_select_kernel']:.3f}, sort "
+          f"{sort_ms:.3f}, merge "
           f"{split['topk_rank_merge_kernel']:.3f}, transpose "
           f"{split['topk_keys_t_kernel']:.3f}), {sel['call_ms']:.3f} ms a "
           f"call, plain {sel['plain_ms']:.3f} ms, addmm+torch.topk "
@@ -1424,6 +1449,8 @@ def large_k_kernels(torch):
             large_k_case(torch, qk, mk, valid, mv, k,
                          f"fill{fill}_clustered N={N_QUERIES} top_k={k} bf16",
                          rows)
+        if fill == max(FILLS):
+            rows["k50"] = small_k_beside(torch, qk, mk, valid)
         if fill == LARGE_K_FP32[0]:
             k = LARGE_K_FP32[1]
             large_k_case(torch, qk.float(), mk.float(), valid, mv.float(), k,
@@ -1442,6 +1469,27 @@ def large_k_kernels(torch):
     rows["merge"] = dict(n=n, m=m, top_k=k, max_abs_err=err,
                          ids_differ=n_diff)
     return rows
+
+
+def small_k_beside(torch, q, mk, valid):
+    """#1 at top_k TOP_K on a large-k case's bank (the pruned kernels, in
+    the same source): checked, and timed by kernel, so that a slowdown of
+    the code they share shows beside the large-k times."""
+    from eva_vos_tpu_torch import kernels as K
+
+    ref_vals, ref_idx = K.topk_select_plain(q, mk, valid, TOP_K + 1)
+    vals, idx = K.topk_select(q, mk, valid, TOP_K)
+    err, n_diff = check_selection(torch, vals, idx, ref_vals, ref_idx,
+                                  f"#1 top_k={TOP_K} beside the large-k cases")
+    split = named_ms(torch, lambda: K.topk_select(q, mk, valid, TOP_K),
+                     dict.fromkeys(PRUNED_KERNELS, 1))
+    print(f"[large-k] #1 at top_k {TOP_K} on the same bank (valid {valid}): "
+          f"max|dv|={err:.3g} ids_differ={n_diff}; device {split['all']:.3f}"
+          f" ms (block {split[PRUNED_KERNELS[0]]:.3f}, merge "
+          f"{split[PRUNED_KERNELS[1]]:.3f})", flush=True)
+    return dict(top_k=TOP_K, valid=valid, max_abs_err=err, ids_differ=n_diff,
+                ms=split["all"],
+                split_ms={x: split[x] for x in PRUNED_KERNELS})
 
 
 def large_k_engine(torch, card, base, feats, pad, masks):
@@ -3266,6 +3314,37 @@ def labeling_check(masks):
     return turns
 
 
+def sharded_large_k(torch, card, engine, mesh, feats, pad, masks) -> dict:
+    """(a) at top_k LARGE_K_ENGINE: the sharded engine on ``mesh`` (its
+    local selection #1's large-k path) against the fused engine at the
+    same top_k over PARALLEL_FRAMES, within PROB_ATOL / PROB_FRAC, #1 once
+    a sharded read."""
+    from eva_vos_tpu_torch.engine import InferenceEngine
+
+    cfg = engine.config._replace(top_k=LARGE_K_ENGINE)
+    fused = InferenceEngine(engine.stcn, engine.fusion, cfg, device=DEVICE)
+    sharded = InferenceEngine(engine.stcn, engine.fusion, cfg._replace(
+        readout_strategy="sharded"), mesh=mesh)
+    fused_state, fused_rows = run_episode(torch, fused, feats, pad, masks)
+    state, rows = run_episode(torch, sharded, feats, pad, masks)
+    check_episode(f"[parallel a] top_k {LARGE_K_ENGINE}", rows)
+    off, dmax = prob_off(torch, state.prob, fused_state.prob)
+    if not torch.isfinite(state.prob).all() or off > PROB_FRAC:
+        fail(f"[parallel a] top_k {LARGE_K_ENGINE}: {off:.2e} of "
+             f"probabilities off the fused engine's by > {PROB_ATOL}")
+    print(f"[parallel a] top_k {LARGE_K_ENGINE}: sharded interacts at frames "
+          f"{list(PARALLEL_FRAMES)}: " + ", ".join(
+              f"{x['ms']:.0f} ms ({x['reads']} reads, #1 x "
+              f"{x['topk_launches']})" for x in rows)
+          + "; fused engine: " + ", ".join(f"{x['ms']:.0f} ms"
+                                           for x in fused_rows)
+          + f" (untraced); probabilities off the fused engine's by > "
+          f"{PROB_ATOL}: {off:.2e} (max |dp| {dmax:.3g}); on {card}",
+          flush=True)
+    return dict(top_k=LARGE_K_ENGINE, rounds=rows, fused_rounds=fused_rows,
+                share_off=off, max_abs_dp=dmax)
+
+
 def parallel_phase(torch, results, card, engine, images, masks):
     """The parallel phase: (a) a one-process NCCL group, (b) two processes
     sharing the card over gloo and the gloo dry run, (c) NCCL across cards
@@ -3338,6 +3417,8 @@ def parallel_phase(torch, results, card, engine, images, masks):
                   f"{moved} B over the episode, {rb['whole']} B a read at N "
                   f"= {rb['n']} (model {rb['model']} B); on {card}",
                   flush=True)
+            out["a512"] = sharded_large_k(torch, card, engine, mesh, feats,
+                                          pad, masks)
         finally:
             dist.destroy_process_group()
         torch.save({"stcn": engine.stcn.state_dict(),
@@ -3372,6 +3453,7 @@ def parallel_phase(torch, results, card, engine, images, masks):
     out["native"] = native_check(torch, engine, images, masks)
     out["topk_launches"] = (
         sum(x["topk_launches"] for x in out["a"]["rounds"])
+        + sum(x["topk_launches"] for x in out["a512"]["rounds"])
         + sum(x["topk_launches"] for r in out["b"] for x in r["rounds"])
         + sum(x["topk_launches"] for r in out["c"] or [] for x in r["rounds"]))
     phase_s = time.perf_counter() - phase_start

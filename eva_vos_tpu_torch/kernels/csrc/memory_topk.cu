@@ -80,43 +80,83 @@
 // block holds no better keys than any other (iid or periodic keys) the floor
 // empties few rows; PERF.md records what it gives.
 //
-// The default selection above 256: a radix select, sorted, into [k, N]
-// --------------------------------------------------------------------
+// The default selection above 256: a two-scoring radix select, into [k, N]
+// ------------------------------------------------------------------------
 // memory_topk_radix_launch takes any top_k (the wrapper sends it those above
 // 256).  The TPU kernel keeps a running list of k per query in VMEM, which
 // its estimate admits for any k (4 k block_q words); here the design above
 // does not stretch: its per-block lists part[N, n_live, k] take 7.5 GB at
 // N = 8,100, 57 live blocks and k = 2,048, and a row's 512-key candidate
-// list (kCap) holds less than k.  What bounds the radix select: the block
-// stage's staging of the bank from L2, as above, once a pass, five passes:
-// at fill 72, N = 8,100, k = 512 it took 17.9 ms on an H100 at 700 W, 17.7
-// of them the radix kernel, against 13.2 for addmm + torch.topk (PERF.md).
-// Design (memory O(N k) words; no [N, M] buffer, no [N, n_live, k] lists):
+// list (kCap) holds less than k.  Memory stays O(N k) words: the
+// candidates take cap = 4 k a query, within [4,096, 16,384]; no [N, M]
+// buffer.
 //
-//  1. topk_radix_kernel: one block a tile of 16 queries walks every live
-//     2,048-token bank block in order, five times, scoring each with the same
-//     score_tile as the block stage above (one call site in the kernel, so
-//     every pass sees the same bits).  Passes 1-4 build, per query (one warp
-//     each), a 256-bin histogram in shared memory of the next 8-bit digit of
-//     the ords that agree with the digits chosen so far (lanes with equal
-//     digits add once, by __match_any_sync), and choose the digit at which
-//     the counts from the top reach the rank still sought: after four, tau is
-//     the ord of the query's kk-th largest key (kk = min(k, valid)) and
-//     `need` the number of keys of ord tau among its top kk.  Pass 5 compacts
-//     to keys[q, 0, kk): every key of ord > tau (kk - need of them), then the
-//     keys of ord tau in id order (a warp prefix over the lanes' columns, in
-//     bank-block order) until `need` are taken: ties go to the lowest id.
-//     The block leaves the walk once every query has all of its keys.
-//  2. topk_sort_chunks_kernel: a block a (query, chunk of kSortChunk keys)
-//     sorts its chunk descending in shared memory (bitonic, zero padding).
-//  3. topk_rank_merge_kernel, only for kk > kSortChunk: merge passes of
-//     sorted runs in device memory, ping-ponging with keys2; a thread a key
-//     places it at its index plus its rank in the partner run (a binary
-//     search; keys are distinct).
-//  4. topk_keys_t_kernel: 32 x 32 tiles of the sorted keys -> vals / idx
+// What bounds it: the bank's scorings.  Each scoring of a query tile stages
+// the whole live bank from L2 (14.9 MB of bf16 keys at fill 72) and runs an
+// epilogue on every (query, token) score; the bytes from device memory
+// (15 MB) and the tensor-core work (0.12 ms at fill 72, N = 8,100) are far
+// below that.  A first radix select here scored the bank five times
+// (four 8-bit digits, then the compaction) on 16-query tiles: 37.8 GB of L2
+// staging at fill 72, 17.6 ms on an H100 at 700 W against 13.0 for
+// addmm + torch.topk.  fp32 keys score on the FP32 units (exact products,
+// no TF32), where every scoring is dear.  With this design, at fill 72,
+// N = 8,100, bf16, a pass over all tiles takes about 1.9 ms on that card:
+// half of it the staging alone (3.8 GB from L2), an eighth the products,
+// a quarter forming the scores and their digits, a twelfth the
+// histogram's atomics (scripts/torch_port_radix_breakdown.py builds the
+// kernel without each part).  The design scores at most twice
+// in the common case, on 32-query tiles (two m16 mma.sync tiles: a tile's
+// histograms of an 11-bit digit take 128 KB of shared memory as 16-bit
+// counts, so 64 queries do not fit), and runs the rest of the digits on
+// candidates alone (as AIR top-k, SC 2023, re-reads its input only for the
+// bins that overflow):
+//
+//  1. topk_key_norms_kernel: |k|^2 of each live token once (fp32), so that
+//     no pass recomputes it.
+//  2. topk_radix_kernel: a block a tile of 32 queries walks the live bank in
+//     1 KB chunks of keys, warp w the chunks w, w + 16, ... through its own
+//     cp.async ring.  bf16: each lane holds its four queries' A fragments
+//     and takes each score straight from the mma accumulators; fp32: lanes
+//     2 p and 2 p + 1 hold half the channels of queries 2 p and 2 p + 1 in
+//     registers, read each token's key as broadcasts and exchange a half
+//     sum, so that lane l scores query l.  Keys are 64-bit (score bits,
+//     ~id), and the digits run over the whole key, five of 11 bits, then 9,
+//     so that ties in score fall to the id bits and keys are distinct.
+//     Pass 1 counts the first digit (the ord's top 11 bits) of every live
+//     key, a 2,048-bin histogram a query of 16-bit counts by shared
+//     atomics (added to a 32-bit one in device memory every 65,528 tokens,
+//     so that none overflows), and picks the bin where the query's rank
+//     kk = min(k, valid) falls.  Pass 2 writes the keys above that bin to
+//     the query's list and appends those in it to its candidates
+//     cand[N, cap], slots from shared counters.  A bin of more than cap keys
+//     (`escalations` counts such queries) instead feeds the next digit's
+//     histogram in pass 2, and pass 3 does the same one digit down, until a
+//     bin fits: a tile makes as many passes as its worst query (`scorings`),
+//     at most seven, with one call site of the scoring.  When a block's
+//     queries agree on the pass (all counting the first digit, or all
+//     compacting at it) each score costs a shift and an atomic, or a shift
+//     and a compare: the rare key at or above the bin takes a short inline
+//     path, so that the lanes that take it hold the warp back little.  With
+//     kk == valid every live key is the answer: one pass writes each at its
+//     id, and no histogram is kept.
+//  3. topk_cand_select_kernel (kk < valid): a block a query moves the
+//     `need` largest of its candidates (the slots after the keys above the
+//     bin) to its list, by 8-bit digits of the keys over the candidates in
+//     shared memory: no scoring, and no sort of the candidates.
+//  4. the list sorted descending: kk <= 1,024 by topk_sort_rows_kernel, a
+//     warp a query in registers and shuffles (no barrier); above, by
+//     topk_sort_chunks_kernel, a block a (query, chunk of 8,192 keys):
+//     128-key runs sorted in registers, then merged pairwise in shared
+//     memory by the merge path (16 outputs a thread a level), which does
+//     O(k log k) work where a bitonic network does O(k log^2 k).
+//  5. topk_rank_merge_kernel, only for kk > 8,192: merge passes of sorted
+//     runs in device memory, ping-ponging with keys2; a thread a key places
+//     it at its index plus its rank in the partner run (a binary search;
+//     keys are distinct).
+//  6. topk_keys_t_kernel: 32 x 32 tiles of the sorted keys -> vals / idx
 //     [k, N], coalesced both ways; (-1e30, 0) in the slots from kk.
 // memory_topk.py states the rules for the tests: radix_threshold the digits,
-// radix_lists the compaction and its tie rule.
+// each query's final bin and its passes, radix_lists the selection.
 
 #include <algorithm>
 
@@ -228,208 +268,805 @@ int launch(const void* qk, const void* mk, void* vals, void* idx, int n,
 
 // The large-k selection (top_k above 256; any top_k is taken).
 
-constexpr int kRadixBins = 256;     // an 8-bit digit of the ord, four passes
-constexpr int kSortChunk = 8192;    // keys a block sorts in shared memory
-constexpr int kSortThreads = 512;
+constexpr int kRQ = 32;                   // queries a radix tile: two m16
+constexpr int kRWarps = 16;
+constexpr int kRThreads = 32 * kRWarps;   // 512
+constexpr int kRBins = 2048;              // bins of an 11-bit digit
+// Tokens a pass counts into a tile's 16-bit histograms (two bins a word)
+// before it adds them to the queries' 32-bit ones in device memory: a bin
+// gains at most one a token, so none overflows.
+constexpr int kRRound = 65528;
+constexpr int kRStages = 4;               // a warp's ring of 1 KB chunks
+constexpr int kRChunkElems = 8 * 64;      // bf16 of one staged chunk
+constexpr int kRF32Chunk = 4;             // fp32: tokens of a chunk (1 KB)
+constexpr int kRChunkBytes = 1024;
+constexpr int kRMaxCap = 16384;           // candidates a query keeps at most
+constexpr int kSortChunk = 8192;          // keys a block sorts in shared memory
+constexpr int kSortMin = 512;             // the shortest sort: 16 keys a lane
 constexpr int kMergeThreads = 256;
-constexpr int kTT = 32;             // the transpose's tile: 32 x 32 keys
+constexpr int kTT = 32;                   // the transpose's tile: 32 x 32 keys
 
-// The radix kernel's shared memory: the block stage's, then [kQT][256]
-// histogram bins.
-inline size_t radix_smem_bytes(int ck) {
-  return block_smem_bytes(ck) + sizeof(unsigned) * kQT * kRadixBins;
+// A query's part in a pass over the bank.
+enum : int {
+  kIdle = 0,     // done (or past n)
+  kHist = 1,     // the first digit's histogram of every live key
+  kCompact = 2,  // keys above digit b to the list, those at b to candidates
+  kSpill = 3,    // as kCompact, but the keys at b (more than cap) feed the
+                 // next digit's histogram
+  kAll = 4,      // kk == valid: every live key to the list, at its id
+};
+
+// What a pass asks of every score of a block, when the block's queries
+// agree: the first digit's histogram (kPassHist), the first digit's
+// compaction (kPassLevel0: a score below the chosen bin, the common case,
+// costs a shift and a compare), every key at its id (kPassAll), or anything
+// (kPassAny: consider(), on the query's state in shared memory).
+enum : int { kPassHist = 0, kPassLevel0 = 1, kPassAll = 2, kPassAny = 3 };
+
+// Digit `level` of a 64-bit key: five of 11 bits from the top (the score
+// bits, then ~id), then the last 9.  The first is the ord's top 11 bits.
+__host__ __device__ __forceinline__ int digit_shift(int level) {
+  return level < 5 ? 53 - 11 * level : 0;
+}
+__device__ __forceinline__ unsigned digit_mask(int shift) {
+  return shift == 0 ? 511u : 2047u;
+}
+__device__ __forceinline__ int next_shift(int shift) {
+  return shift >= 20 ? shift - 11 : 0;
+}
+__device__ __forceinline__ unsigned digit_of(u64 key, int shift) {
+  return static_cast<unsigned>(key >> shift) & digit_mask(shift);
 }
 
-// Adds the warp's row's live ords that agree with `prefix` above bit
-// shift + 8 (all live ords when `first`) to hist[(ord >> shift) & 255].
-__device__ __forceinline__ void radix_histogram(const unsigned* row,
-                                                bool first, int shift,
-                                                unsigned prefix,
-                                                unsigned* hist) {
-  const int lane = threadIdx.x & 31;
-  const uint4* row4 = reinterpret_cast<const uint4*>(row);
-  for (int i = 0; i < kVecs; ++i) {
-    const uint4 o = row4[lane + 32 * i];
-    const unsigned ord[4] = {o.x, o.y, o.z, o.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool in = ord[e] != 0u &&
-                      (first || (ord[e] >> (shift + 8)) == prefix);
-      if (__ballot_sync(kFull, in) == 0u) continue;
-      const unsigned digit = in ? (ord[e] >> shift) & 0xffu : 0x100u;
-      const unsigned peers = __match_any_sync(kFull, digit);
-      if (in && lane == __ffs(peers) - 1) atomicAdd(hist + digit, __popc(peers));
+// A query's state in a pass, as every thread that scores it holds it: the
+// keys it considers are those with key & mask == pre (an idle query has
+// pre 1, mask 0: none).
+struct RadixReg {
+  u64 pre;
+  u64 mask;
+  int shift;  // of the digit
+  int b;      // the chosen digit (kCompact, kSpill)
+  int mode;
+};
+
+// The radix kernel's shared memory: [kRQ][kRBins / 2] histograms (16-bit
+// counts, bin j in the low half of word j, j + 1,024 in the high half), the
+// queries' states and counters, then the staging ring [kRWarps][kRStages]
+// of 1 KB chunks of keys (8 bf16 tokens or 4 fp32 ones).
+struct RadixSmem {
+  unsigned* hist;
+  RadixReg* reg;
+  int* gt;     // keys written to the query's list
+  int* cn;     // candidates written
+  int* rank;   // the rank still sought among the keys in the digit's bin
+  int* level;  // of the digit
+  void* ring;
+};
+
+__device__ __forceinline__ RadixSmem carve_radix(unsigned char* p) {
+  RadixSmem s;
+  s.hist = reinterpret_cast<unsigned*>(p);
+  p += sizeof(unsigned) * kRQ * kRBins / 2;
+  s.reg = reinterpret_cast<RadixReg*>(p);
+  p += sizeof(RadixReg) * kRQ;
+  s.gt = reinterpret_cast<int*>(p);
+  s.cn = s.gt + kRQ;
+  s.rank = s.cn + kRQ;
+  s.level = s.rank + kRQ;
+  s.ring = p + 4 * sizeof(int) * kRQ;
+  return s;
+}
+
+template <typename T>
+constexpr size_t radix_smem_bytes() {
+  return sizeof(unsigned) * kRQ * kRBins / 2 + sizeof(RadixReg) * kRQ +
+         4 * sizeof(int) * kRQ + kRChunkBytes * kRWarps * kRStages;
+}
+static_assert((sizeof(unsigned) * kRQ * kRBins / 2 + sizeof(RadixReg) * kRQ +
+               4 * sizeof(int) * kRQ) % 16 == 0,
+              "16-byte aligned staging ring");
+static_assert(radix_smem_bytes<__nv_bfloat16>() <= 232448,
+              "the radix kernel's shared memory fits an SM");
+
+// One more key in bin d of query qi's histogram.  The first digit's top
+// bit is the score's sign: the bulk of a query's scores, negative, adds a
+// constant 1 to the low halves, which the hardware does for all the lanes
+// that hit one word at once.
+__device__ __forceinline__ void hist_add(const RadixSmem& s, int qi,
+                                         unsigned d) {
+  unsigned* word = s.hist + qi * (kRBins / 2) + (d & (kRBins / 2 - 1));
+  if (d < kRBins / 2) {
+    atomicAdd(word, 1u);
+  } else {
+    atomicAdd(word, 0x10000u);
+  }
+}
+
+// The live score of ord `ord` (token tok) of query qi (row q) in this
+// pass, by its state st: a key above the chosen digit goes to the query's
+// list, one at it to the candidates (or the next digit's histogram).  Slots
+// come from shared counters, so list and candidates are in no set order.
+// The first digit is the ord's top 11 bits and has no prefix, so the
+// passes at it never build the 64-bit key of a score they do not keep.
+__device__ __forceinline__ void consider(unsigned ord, int tok, int qi,
+                                         size_t q, const RadixReg& st,
+                                         const RadixSmem& s, u64* keys,
+                                         u64* cand, int kk, int cap) {
+  if (st.mode == kIdle) return;  // (kAll queries take kPassAll passes)
+  unsigned d;
+  if (st.shift == digit_shift(0)) {
+    d = ord >> 21;
+  } else {
+    const u64 key = key_of(ord, tok);
+    if ((key & st.mask) != st.pre) return;
+    d = digit_of(key, st.shift);
+  }
+  if (st.mode == kHist) {
+    hist_add(s, qi, d);
+  } else if (d > static_cast<unsigned>(st.b)) {
+    keys[q * kk + atomicAdd(s.gt + qi, 1)] = key_of(ord, tok);
+  } else if (d == static_cast<unsigned>(st.b)) {
+    if (st.mode == kCompact) {
+      cand[q * cap + atomicAdd(s.cn + qi, 1)] = key_of(ord, tok);
+    } else {
+      hist_add(s, qi, digit_of(key_of(ord, tok), next_shift(st.shift)));
     }
   }
 }
 
-// The warp's next digit: the bin, counted from the top, at which the counts
-// reach `rank` (at least 1, at most their sum); prefix gains the digit and
-// rank becomes the rank within its bin.  Lane l holds bins 255 - 8 l - j.
-__device__ __forceinline__ void radix_digit(const unsigned* hist,
-                                            unsigned& prefix,
-                                            unsigned& rank) {
-  const int lane = threadIdx.x & 31;
-  unsigned c[8];
-  unsigned sum = 0u;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c[j] = hist[255 - 8 * lane - j];
-    sum += c[j];
-  }
-  unsigned incl = sum;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned x = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += x;
-  }
-  const unsigned hit = __ballot_sync(kFull, incl >= rank);
-  const int src = hit ? __ffs(hit) - 1 : 31;
-  unsigned digit = 0u, r = rank;
-  if (lane == src) {
-    unsigned cum = incl - sum;
-    bool found = false;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (!found && cum + c[j] >= rank) {
-        digit = 255u - 8u * lane - j;
-        r = rank - cum;
-        found = true;
-      }
-      cum += c[j];
-    }
-  }
-  prefix = (prefix << 8) | __shfl_sync(kFull, digit, src);
-  rank = __shfl_sync(kFull, r, src);
+// A query's gate on a score's first digit d in a pass of kind `kind`:
+// kPassHist counts d, and kPassAll keeps the key, when the gate is 0 (a
+// query in that mode); kPassLevel0 takes the score when d >= gate (the
+// chosen digit; never for an idle query).
+__device__ __forceinline__ unsigned radix_gate(const RadixReg& st, int kind) {
+  if (kind == kPassHist) return st.mode == kHist ? 0u : ~0u;
+  if (kind == kPassAll) return st.mode == kAll ? 0u : ~0u;
+  return st.mode == kCompact || st.mode == kSpill ? static_cast<unsigned>(st.b)
+                                                  : ~0u;
 }
 
-// Pass 5 on the warp's row of bank block `lo`: its keys of ord > tau to
-// out[gt...] (gt < greater), its keys of ord tau in id order to
-// out[greater + ties...] while ties < need; gt and ties run over the blocks.
-// Lane l holds columns 4 l + 128 i + e, so an exclusive prefix over the
-// lanes of their counts, then e, is the id order within 128 columns.
-__device__ __forceinline__ void radix_compact(const unsigned* row, int lo,
-                                              unsigned tau, u64* out,
-                                              int greater, int need, int& gt,
-                                              int& ties) {
-  const int lane = threadIdx.x & 31;
-  const uint4* row4 = reinterpret_cast<const uint4*>(row);
-  for (int i = 0; i < kVecs; ++i) {
-    const uint4 o = row4[lane + 32 * i];
-    const unsigned ord[4] = {o.x, o.y, o.z, o.w};
-    unsigned packed = 0u;  // ties in the high half, keys above in the low
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      packed += ord[e] > tau ? 1u : ord[e] == tau ? 0x10000u : 0u;
+// A live score of ord `ord` (token tok) of query qi of the tile at q0, by
+// the pass's kind and the query's gate: the first digit's histogram, the
+// first digit's compaction (inline: the rare key at or above the chosen
+// bin costs a few instructions, so that lanes that take it hold the warp
+// back little), every key at its id, or consider().
+__device__ __forceinline__ void radix_score(unsigned ord, int tok, int qi,
+                                            int q0, int kind, unsigned gate,
+                                            bool spill, const RadixSmem& s,
+                                            u64* keys, u64* cand, int kk,
+                                            int cap) {
+  const size_t q = static_cast<size_t>(q0 + qi);
+  const unsigned d = ord >> 21;
+  if (kind == kPassHist) {
+    if (gate == 0u) hist_add(s, qi, d);
+  } else if (kind == kPassLevel0) {
+    if (d < gate) return;
+    const u64 key = key_of(ord, tok);
+    if (d > gate) {
+      keys[q * kk + atomicAdd(s.gt + qi, 1)] = key;
+    } else if (!spill) {
+      cand[q * cap + atomicAdd(s.cn + qi, 1)] = key;
+    } else {
+      hist_add(s, qi, digit_of(key, digit_shift(1)));
     }
-    if (__ballot_sync(kFull, packed != 0u) == 0u) continue;
-    unsigned incl = packed;
+  } else if (kind == kPassAll) {
+    if (gate == 0u) keys[q * kk + tok] = key_of(ord, tok);
+  } else {
+    consider(ord, tok, qi, q, s.reg[qi], s, keys, cand, kk, cap);
+  }
+}
+
+// The warp's digit of a histogram of `bins` bins, bin j's count h(j), for
+// rank r (1 <= r <= its sum): the bin b at which the counts from the top
+// reach r; above, the counts of the bins above b; count, h(b).  32 bins a
+// step, from the top.
+template <typename H>
+__device__ __forceinline__ void choose_digit(H h, int bins, unsigned r,
+                                             int& b, unsigned& above,
+                                             unsigned& count) {
+  const int lane = threadIdx.x & 31;
+  unsigned run = 0u;
+  b = 0;
+  above = 0u;
+  count = 0u;
+  for (int top = bins - 1; top >= 0; top -= 32) {
+    const int bin = top - lane;
+    const unsigned x = bin >= 0 ? h(bin) : 0u;
+    unsigned incl = x;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const unsigned x = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += x;
+      const unsigned y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
     }
-    const unsigned total = __shfl_sync(kFull, incl, 31);
-    const unsigned ex = incl - packed;
-    int pg = gt + static_cast<int>(ex & 0xffffu);
-    int pt = ties + static_cast<int>(ex >> 16);
-    const int id0 = lo + 4 * (lane + 32 * i);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (ord[e] > tau) {
-        if (pg < greater) out[pg] = key_of(ord[e], id0 + e);
-        ++pg;
-      } else if (ord[e] == tau) {
-        if (pt < need) out[greater + pt] = key_of(ord[e], id0 + e);
-        ++pt;
-      }
+    const unsigned hit = __ballot_sync(kFull, run + incl >= r);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      b = top - src;
+      count = __shfl_sync(kFull, x, src);
+      above = run + __shfl_sync(kFull, incl, src) - count;
+      return;
     }
-    gt += static_cast<int>(total & 0xffffu);
-    ties += static_cast<int>(total >> 16);
+    run += __shfl_sync(kFull, incl, 31);
   }
 }
 
-// Stage 1: keys[n, kk], query q's top kk keys (unsorted), for
-// 1 <= kk = min(top_k, valid).
-template <typename T, int CK>
-__global__ void __launch_bounds__(kThreads1, 1)
+// After a pass, query qi's next state (the whole warp calls it): a query
+// whose keys are all placed is done; after a histogram, the digit where
+// its rank falls, with its candidates kept when they fit cap and the next
+// digit's histogram built when they do not.  escalations counts the
+// queries whose first bin overflows cap.
+// (The histogram is in shared memory, plus hist32's row of the query when
+// the pass flushed its earlier rounds there.)
+__device__ __forceinline__ void next_state(int qi, const RadixSmem& s,
+                                           const unsigned* hist32, int cap,
+                                           int* escalations) {
+  RadixReg st = s.reg[qi];
+  if (st.mode == kIdle) return;
+  const int lane = threadIdx.x & 31;
+  if (st.mode == kAll || st.mode == kCompact) {
+    __syncwarp();
+    if (lane == 0) {
+      st.mode = kIdle;
+      st.pre = 1ull;
+      st.mask = 0ull;
+      s.reg[qi] = st;
+    }
+    __syncwarp();
+    return;
+  }
+  int level = s.level[qi];
+  if (st.mode == kSpill) {  // the histogram is the next digit's, in bin b
+    st.pre |= static_cast<u64>(st.b) << st.shift;
+    st.mask |= static_cast<u64>(digit_mask(st.shift)) << st.shift;
+    st.shift = digit_shift(++level);
+  }
+  int b;
+  unsigned above, count;
+  const unsigned rank = static_cast<unsigned>(s.rank[qi]);
+  const int bins = st.shift == 0 ? 512 : kRBins;
+  const unsigned* row = s.hist + qi * (kRBins / 2);
+  choose_digit([row, hist32](int j) {
+                 return ((row[j % (kRBins / 2)] >> (16 * (j / (kRBins / 2)))) &
+                         0xffffu) + (hist32 != nullptr ? hist32[j] : 0u);
+               },
+               bins, rank, b, above, count);
+  __syncwarp();
+  if (lane == 0) {
+    const bool fits = count <= static_cast<unsigned>(cap);
+    if (st.mode == kHist && !fits && escalations != nullptr) {
+      atomicAdd(escalations, 1);
+    }
+    st.b = b;
+    st.mode = fits ? kCompact : kSpill;
+    s.reg[qi] = st;
+    s.rank[qi] = static_cast<int>(rank - above);
+    s.level[qi] = level;
+  }
+  __syncwarp();
+}
+
+// Stage 1: per query, its list keys[q, 0, kk - need) (the keys above its
+// final bin, in no set order) and its candidates cand[q, 0, c) (the keys
+// in that bin, c <= cap), meta[q] = (c, need): the top `need` candidates
+// complete the list.  kk == valid: the list is every live key at its id,
+// meta (0, 0).  norms[t] = |k_t|^2 (topk_key_norms_kernel).  A block a tile
+// of kRQ queries, passes over the whole live bank until each of its
+// queries is done; scorings (atomicMax) the most passes of a block.  Above
+// kRRound valid tokens a pass that counts adds its 16-bit histograms to
+// hist32 [n][kRBins] (32-bit) after every kRRound tokens but the last ones,
+// and the digits are chosen from both.
+template <typename T>
+__global__ void __launch_bounds__(kRThreads, 1)
 topk_radix_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
-                  u64* __restrict__ keys, int n, int valid, int kk) {
-  extern __shared__ __align__(16) unsigned radix_smem[];
-  const BlockSmem s = carve_block(radix_smem);
+                  const float* __restrict__ norms, u64* __restrict__ keys,
+                  u64* __restrict__ cand, int2* __restrict__ meta,
+                  unsigned* __restrict__ hist32, int n, int valid, int kk,
+                  int cap, int* escalations, int* scorings) {
+  extern __shared__ __align__(16) unsigned char radix_smem[];
+  const RadixSmem s = carve_radix(radix_smem);
+  const int q0 = blockIdx.x * kRQ;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  unsigned* hist =
-      reinterpret_cast<unsigned*>(s.s_q + kQT * CK) + warp * kRadixBins;
-  const int q0 = blockIdx.x * kQT;
-  const int q = q0 + warp;
-  const bool live = q < n;
-  const unsigned* row = s.tile + warp * kRowStride;
-  u64* out = keys + static_cast<size_t>(live ? q : 0) * kk;
-  const int n_live = (valid + kBlk - 1) / kBlk;
-  unsigned prefix = 0u, rank = static_cast<unsigned>(kk);
-  int greater = 0, need = 0, gt = 0, ties = 0;
-  for (int pass = 0; pass < 5; ++pass) {
-    const int shift = 24 - 8 * pass;  // pass 4 compacts
-    __syncwarp();
-    if (pass < 4) {
-      for (int b = lane; b < kRadixBins; b += 32) hist[b] = 0u;
-    } else {
-      need = static_cast<int>(rank);
-      greater = kk - need;
+  if (threadIdx.x < kRQ) {
+    const int qi = threadIdx.x;
+    const bool live = q0 + qi < n;
+    RadixReg st;
+    st.pre = live ? 0ull : 1ull;
+    st.mask = 0ull;
+    st.shift = digit_shift(0);
+    st.b = 0;
+    st.mode = !live ? kIdle : kk == valid ? kAll : kHist;
+    s.reg[qi] = st;
+    s.gt[qi] = 0;
+    s.cn[qi] = 0;
+    s.rank[qi] = kk == valid ? 0 : kk;
+    s.level[qi] = 0;
+  }
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  // bf16: the tile's queries as A fragments of two m16 tiles (rows g,
+  // g + 8 of tile mt are queries 16 mt + g, 16 mt + g + 8), four k16
+  // steps; fp32: half of two queries' channels a lane (below)
+  const int g = lane >> 2;
+  const int quad = lane & 3;
+  unsigned a[2][4][4];
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int qa = q0 + 16 * mt + g;
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const int c = 16 * kq + 2 * quad;
+        a[mt][kq][0] = query_pair(qk, qa, n, c);
+        a[mt][kq][1] = query_pair(qk, qa + 8, n, c);
+        a[mt][kq][2] = query_pair(qk, qa, n, c + 8);
+        a[mt][kq][3] = query_pair(qk, qa + 8, n, c + 8);
+      }
     }
-    __syncwarp();
-    for (int blk = 0; blk < n_live; ++blk) {
-      const int lo = blk * kBlk;
-      score_tile<T, CK>(qk, mk, n, q0, lo, min(lo + kBlk, valid), s);
-      if (live) {
-        if (pass < 4) {
-          radix_histogram(row, pass == 0, shift, prefix, hist);
+  }
+  float qf[2][32];
+  if constexpr (!kBf16) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int qa = q0 + (lane & ~1) + j;
+#pragma unroll
+      for (int c = 0; c < 32; c += 8) {
+        if (qa < n) {
+          load8(qk + static_cast<size_t>(qa) * 64 + 32 * (lane & 1) +
+                    ((c + 16 * (lane & 1)) & 31),
+                qf[j] + c);
         } else {
-          radix_compact(row, lo, prefix, out, greater, need, gt, ties);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) qf[j][c + i] = 0.f;
         }
       }
-      // the tile is scored again next; pass 5 ends once every query of the
-      // tile holds its kk keys
-      const bool more = live && (pass < 4 || gt < greater || ties < need);
-      if (!__syncthreads_or(more)) break;
     }
-    __syncwarp();
-    if (live && pass < 4) radix_digit(hist, prefix, rank);
   }
-}
 
-// Stage 2: each chunk of kSortChunk keys of a query's list sorted
-// descending; p2 (a power of two, at least the longest chunk) keys of
-// shared memory, zeros past the chunk, which sort last.
-__global__ void __launch_bounds__(kSortThreads)
-topk_sort_chunks_kernel(u64* __restrict__ keys, int kk) {
-  extern __shared__ u64 sorted_keys[];
-  const int start = blockIdx.y * kSortChunk;
-  const int len = min(kSortChunk, kk - start);
-  int p = 1;
-  while (p < len) p <<= 1;
-  u64* list = keys + static_cast<size_t>(blockIdx.x) * kk + start;
-  for (int i = threadIdx.x; i < p; i += kSortThreads) {
-    sorted_keys[i] = i < len ? list[i] : 0ull;
-  }
-  __syncthreads();
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < p / 2; i += kSortThreads) {
-        const int a = 2 * i - (i & (stride - 1));
-        const int b = a + stride;
-        const u64 x = sorted_keys[a];
-        const u64 y = sorted_keys[b];
-        if ((x < y) == ((a & size) == 0)) {
-          sorted_keys[a] = y;
-          sorted_keys[b] = x;
+  int passes = 0;
+  for (;;) {
+    __syncthreads();
+    const RadixReg mine_q = s.reg[threadIdx.x % kRQ];
+    const int qmode = threadIdx.x < kRQ ? mine_q.mode : kIdle;
+    if (!__syncthreads_or(qmode != kIdle)) break;
+    const bool all_hist = __syncthreads_and(qmode == kIdle || qmode == kHist);
+    const bool all_level0 = __syncthreads_and(
+        qmode == kIdle || ((qmode == kCompact || qmode == kSpill) &&
+                           mine_q.shift == digit_shift(0)));
+    const bool all_all = __syncthreads_and(qmode == kIdle || qmode == kAll);
+    const bool counts = __syncthreads_or(qmode == kHist || qmode == kSpill);
+    const int rounds = (valid + kRRound - 1) / kRRound;
+    const bool flush = counts && rounds > 1;
+    const int kind = all_hist     ? kPassHist
+                     : all_level0 ? kPassLevel0
+                     : all_all    ? kPassAll
+                                  : kPassAny;
+    uint4* h4 = reinterpret_cast<uint4*>(s.hist);
+    for (int i = threadIdx.x; i < kRQ * kRBins / 8; i += kRThreads) {
+      h4[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+    for (int round = 0; round < rounds; ++round) {
+      // tokens [lo_tok, hi_tok) of the live bank, a multiple of 8 from lo_tok
+      const int lo_tok = round * kRRound;
+      const int hi_tok = min(valid, lo_tok + kRRound);
+      // one pass over the live bank: the only scoring of the kernel, so every
+      // pass sees the same bits
+      if constexpr (kBf16) {
+        unsigned gate[2][2];
+        bool spill[2][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const RadixReg& st = s.reg[16 * mt + g + 8 * h];
+            gate[mt][h] = radix_gate(st, kind);
+            spill[mt][h] = st.mode == kSpill;
+          }
+        }
+        __nv_bfloat16* ring = static_cast<__nv_bfloat16*>(s.ring) +
+                              warp * kRStages * kRChunkElems;
+        const int c0 = lo_tok >> 3;
+        const int n_chunks = ((hi_tok + 7) >> 3) - c0;
+        const int mine = n_chunks > warp ? (n_chunks - 1 - warp) / kRWarps + 1
+                                         : 0;
+        // warp w's i-th chunk: tokens [8 (c0 + w + 16 i), + 8); row r of a
+        // staged chunk holds its 16-byte unit u at u ^ r (as score_block_mma)
+        auto issue = [&](int i) {
+          if (i < mine) {
+            __nv_bfloat16* buf = ring + (i % kRStages) * kRChunkElems;
+            const int tok0 = 8 * (c0 + warp + kRWarps * i);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int row = (lane >> 3) + 4 * j;
+              const int unit = lane & 7;
+              const int tok = tok0 + row;
+              const bool live = tok < valid;
+              cp_async16(buf + row * 64 + ((unit ^ row) << 3),
+                         live ? mk + static_cast<size_t>(tok) * 64 + unit * 8
+                              : mk,
+                         live ? 16 : 0);
+            }
+          }
+          cp_async_commit();
+        };
+#pragma unroll
+        for (int i = 0; i < kRStages - 1; ++i) issue(i);
+        // this lane's tokens' |k|^2, loaded a chunk ahead
+        float2 sq_next = make_float2(0.f, 0.f);
+        if (mine > 0) {
+          sq_next = *reinterpret_cast<const float2*>(norms + 8 * (c0 + warp) +
+                                                     2 * quad);
+        }
+        for (int i = 0; i < mine; ++i) {
+          const float2 sq = sq_next;
+          if (i + 1 < mine) {
+            sq_next = *reinterpret_cast<const float2*>(
+                norms + 8 * (c0 + warp + kRWarps * (i + 1)) + 2 * quad);
+          }
+          issue(i + kRStages - 1);
+          cp_async_wait<kRStages - 1>();
+          __syncwarp();
+          const __nv_bfloat16* buf = ring + (i % kRStages) * kRChunkElems;
+          unsigned bq[8];
+          const int r = lane & 7;
+          ldmatrix_x4(bq, buf + r * 64 + (((lane >> 3) ^ r) << 3));
+          ldmatrix_x4(bq + 4, buf + r * 64 + ((((lane >> 3) + 4) ^ r) << 3));
+          __syncwarp();  // the ring slot is free for the next issue
+          float d[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[mt][e] = 0.f;
+#pragma unroll
+            for (int kq = 0; kq < 4; ++kq) {
+              mma_bf16(d[mt], a[mt][kq], bq[2 * kq], bq[2 * kq + 1]);
+            }
+          }
+          // this lane's tokens: columns 2 quad, 2 quad + 1 of the chunk;
+          // score = (2 <q, k> - |k|^2) / 8 as one rounding of q.k / 4 - |k|^2
+          // / 8 (both exact scalings)
+          const int tok = 8 * (c0 + warp + kRWarps * i) + 2 * quad;
+          const float sq8[2] = {sq.x * 0.125f, sq.y * 0.125f};
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int qi = 16 * mt + g + 8 * h;
+#pragma unroll
+              for (int t = 0; t < 2; ++t) {
+                if (tok + t >= valid) continue;
+                const unsigned ord =
+                    ord_of(fmaf(d[mt][2 * h + t], 0.25f, -sq8[t]) + 0.f);
+                radix_score(ord, tok + t, qi, q0, kind, gate[mt][h],
+                            spill[mt][h], s, keys, cand, kk, cap);
+              }
+            }
+          }
+        }
+        cp_async_wait<0>();
+      } else {
+        // fp32 on the FP32 units, exactly: lanes 2 p and 2 p + 1 hold
+        // queries 2 p and 2 p + 1 in registers, channels [32 h, 32 h + 32)
+        // for lane 2 p + h (step c of lane h on channel 32 h + (c + 16 h) %
+        // 32, so that the two halves' broadcasts hit distinct banks); a
+        // token's key is read from the warp's ring of 4-token chunks, and
+        // the partner's half sum of the other query is exchanged, so that
+        // lane l scores query l (its state in registers)
+        const unsigned gate = radix_gate(s.reg[lane], kind);
+        const bool spill = s.reg[lane].mode == kSpill;
+        constexpr int kSlot = kRChunkBytes / sizeof(float);
+        float* ring = static_cast<float*>(s.ring) + warp * kRStages * kSlot;
+        const int h = lane & 1;
+        const int c0 = lo_tok / kRF32Chunk;
+        const int n_chunks = (hi_tok + kRF32Chunk - 1) / kRF32Chunk - c0;
+        const int mine = n_chunks > warp ? (n_chunks - 1 - warp) / kRWarps + 1
+                                         : 0;
+        auto issue = [&](int i) {
+          if (i < mine) {
+            float* buf = ring + (i % kRStages) * kSlot;
+            const int tok0 = kRF32Chunk * (c0 + warp + kRWarps * i);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int row = (lane >> 4) + 2 * j;
+              const int unit = lane & 15;
+              const int tok = tok0 + row;
+              const bool live = tok < valid;
+              cp_async16(buf + row * 64 + unit * 4,
+                         live ? mk + static_cast<size_t>(tok) * 64 + unit * 4
+                              : mk,
+                         live ? 16 : 0);
+            }
+          }
+          cp_async_commit();
+        };
+#pragma unroll
+        for (int i = 0; i < kRStages - 1; ++i) issue(i);
+        // the chunk's four |k|^2, loaded a chunk ahead
+        float4 sq_next = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (mine > 0) {
+          sq_next = *reinterpret_cast<const float4*>(norms + kRF32Chunk *
+                                                     (c0 + warp));
+        }
+        for (int i = 0; i < mine; ++i) {
+          const float4 sq4 = sq_next;
+          if (i + 1 < mine) {
+            sq_next = *reinterpret_cast<const float4*>(
+                norms + kRF32Chunk * (c0 + warp + kRWarps * (i + 1)));
+          }
+          const float sq[kRF32Chunk] = {sq4.x, sq4.y, sq4.z, sq4.w};
+          issue(i + kRStages - 1);
+          cp_async_wait<kRStages - 1>();
+          __syncwarp();
+          const float* buf = ring + (i % kRStages) * kSlot;
+          const int tok0 = kRF32Chunk * (c0 + warp + kRWarps * i);
+#pragma unroll
+          for (int j = 0; j < kRF32Chunk; ++j) {
+            const float* kr = buf + j * 64 + 32 * h;
+            float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll
+            for (int c = 0; c < 32; c += 4) {
+              const float4 kv =
+                  *reinterpret_cast<const float4*>(kr + ((c + 16 * h) & 31));
+              acc0 = fmaf(qf[0][c], kv.x, acc0);
+              acc0 = fmaf(qf[0][c + 1], kv.y, acc0);
+              acc0 = fmaf(qf[0][c + 2], kv.z, acc0);
+              acc0 = fmaf(qf[0][c + 3], kv.w, acc0);
+              acc1 = fmaf(qf[1][c], kv.x, acc1);
+              acc1 = fmaf(qf[1][c + 1], kv.y, acc1);
+              acc1 = fmaf(qf[1][c + 2], kv.z, acc1);
+              acc1 = fmaf(qf[1][c + 3], kv.w, acc1);
+            }
+            const float other = __shfl_xor_sync(kFull, h ? acc0 : acc1, 1);
+            const int tok = tok0 + j;
+            if (tok < valid) {
+              const float dot = (h ? acc1 : acc0) + other;
+              const unsigned ord =
+                  ord_of(fmaf(dot, 0.25f, -0.125f * sq[j]) + 0.f);
+              radix_score(ord, tok, lane, q0, kind, gate, spill, s, keys, cand,
+                          kk, cap);
+            }
+          }
+          __syncwarp();  // the ring slot is free for the next issue
+        }
+        cp_async_wait<0>();
+      }
+      if (flush && round + 1 < rounds) {  // the counts to the 32-bit rows
+        __syncthreads();
+        for (int w = threadIdx.x; w < kRQ * kRBins / 2; w += kRThreads) {
+          const int qi = w / (kRBins / 2);
+          const unsigned c = s.hist[w];
+          s.hist[w] = 0u;
+          if (q0 + qi >= n) continue;
+          unsigned* dst = hist32 + static_cast<size_t>(q0 + qi) * kRBins +
+                          w % (kRBins / 2);
+          const unsigned lo = (c & 0xffffu) + (round > 0 ? dst[0] : 0u);
+          const unsigned hi = (c >> 16) + (round > 0 ? dst[kRBins / 2] : 0u);
+          dst[0] = lo;
+          dst[kRBins / 2] = hi;
         }
       }
       __syncthreads();
+    }  // rounds
+    ++passes;
+    const unsigned* rows = flush ? hist32 + static_cast<size_t>(q0) * kRBins
+                                 : nullptr;
+    next_state(warp, s, rows ? rows + warp * kRBins : nullptr, cap,
+               escalations);
+    next_state(warp + kRWarps, s,
+               rows ? rows + (warp + kRWarps) * kRBins : nullptr, cap,
+               escalations);
+  }
+  if (threadIdx.x < kRQ && q0 + static_cast<int>(threadIdx.x) < n) {
+    meta[q0 + threadIdx.x] = make_int2(s.cn[threadIdx.x], s.rank[threadIdx.x]);
+  }
+  if (threadIdx.x == 0 && scorings != nullptr) atomicMax(scorings, passes);
+}
+
+// |k_t|^2 in fp32 for t < valid, 0 up to `padded` (the radix kernel reads
+// two tokens at a time).
+template <typename T>
+__global__ void __launch_bounds__(256)
+topk_key_norms_kernel(const T* __restrict__ mk, float* __restrict__ norms,
+                      int valid, int padded) {
+  const int t = blockIdx.x * 256 + threadIdx.x;
+  if (t >= padded) return;
+  float sq = 0.f;
+  if (t < valid) {
+#pragma unroll
+    for (int c = 0; c < 64; c += 8) {
+      float v[8];
+      load8(mk + static_cast<size_t>(t) * 64 + c, v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sq = fmaf(v[i], v[i], sq);
     }
   }
-  for (int i = threadIdx.x; i < len; i += kSortThreads) list[i] = sorted_keys[i];
+  norms[t] = sq;
+}
+
+// The block sort of stage 3 (kk > 1,024): 128-key runs sorted in
+// registers by warps (warp_sort_desc, 4 keys a lane), then merged pairwise
+// in shared memory, ping-ponging between two buffers, each thread placing
+// kMergeOut consecutive outputs of its run pair by the merge path.  Key q
+// of a buffer sits at q + q / 16, so that the threads' runs of 16 outputs
+// start in distinct banks.
+constexpr int kSortRun = 128;
+constexpr int kMergeOut = 16;
+
+__host__ __device__ __forceinline__ int padded(int q) { return q + (q >> 4); }
+
+// Outputs [d, d + kMergeOut) of the merge of the descending runs a and b
+// (each `run` keys, both from buffer src at padded offsets) to dst from
+// position `out` on: i keys of a and d - i of b precede output d (the
+// merge path, found by bisection); a key of a goes first on ties.
+__device__ __forceinline__ void merge_path(const u64* src, int a, int run,
+                                           int d, u64* dst, int out) {
+  const int b = a + run;
+  int lo = max(0, d - run);
+  int hi = min(d, run);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (src[padded(b + d - mid - 1)] <= src[padded(a + mid)]) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int i = lo;
+  int j = d - lo;
+  u64 x = i < run ? src[padded(a + i)] : 0ull;
+  u64 y = j < run ? src[padded(b + j)] : 0ull;
+#pragma unroll
+  for (int e = 0; e < kMergeOut; ++e) {
+    if (j >= run || (i < run && x >= y)) {
+      dst[padded(out + e)] = x;
+      ++i;
+      x = i < run ? src[padded(a + i)] : 0ull;
+    } else {
+      dst[padded(out + e)] = y;
+      ++j;
+      y = j < run ? src[padded(b + j)] : 0ull;
+    }
+  }
+}
+
+// The padded length a sort takes for `len` keys: a power of two in
+// [kSortMin, kSortChunk].
+__host__ __device__ __forceinline__ int sort_width(int len) {
+  int p = kSortMin;
+  while (p < len) p <<= 1;
+  return p;
+}
+
+constexpr int kSelThreads = 256;
+
+// Stage 2: a block a query with need > 0 (meta = (c, need)): the `need`
+// largest of its c candidates to its list's slots [kk - need, kk), in no
+// set order.  The candidates sit in shared memory; 8-bit digits of the
+// keys from the top pick the need-th largest (a 256-bin histogram a
+// round), until a bin is taken whole; the keys at or above its least key
+// are the top need (keys are distinct).
+__global__ void __launch_bounds__(kSelThreads)
+topk_cand_select_kernel(u64* __restrict__ keys, const u64* __restrict__ cand,
+                        const int2* __restrict__ meta, int kk, int cap) {
+  extern __shared__ u64 cand_keys[];
+  __shared__ unsigned hist[256];
+  __shared__ u64 s_pre;
+  __shared__ int s_rank;
+  __shared__ int s_done;
+  __shared__ int s_count;
+  const int2 m = meta[blockIdx.x];
+  if (m.y == 0) return;
+  const u64* c = cand + static_cast<size_t>(blockIdx.x) * cap;
+  for (int i = threadIdx.x; i < m.x; i += kSelThreads) cand_keys[i] = c[i];
+  if (threadIdx.x == 0) {
+    s_pre = 0ull;
+    s_rank = m.y;
+    s_done = m.y == m.x;  // every candidate is taken
+    s_count = 0;
+  }
+  __syncthreads();
+  u64 mask = 0ull;
+  for (int shift = 56; shift >= 0 && !s_done; shift -= 8) {
+    for (int b = threadIdx.x; b < 256; b += kSelThreads) hist[b] = 0u;
+    __syncthreads();
+    const u64 pre = s_pre;
+    for (int i = threadIdx.x; i < m.x; i += kSelThreads) {
+      const u64 key = cand_keys[i];
+      if ((key & mask) == pre) {
+        atomicAdd(hist + static_cast<unsigned>((key >> shift) & 255u), 1u);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      int b;
+      unsigned above, count;
+      const unsigned rank = static_cast<unsigned>(s_rank);
+      const unsigned* hp = hist;
+      choose_digit([hp](int j) { return hp[j]; }, 256, rank, b, above,
+                   count);
+      __syncwarp();
+      if (threadIdx.x == 0) {
+        s_pre = pre | (static_cast<u64>(b) << shift);
+        s_rank = static_cast<int>(rank - above);
+        s_done = count == rank - above;
+      }
+    }
+    mask |= 255ull << shift;
+    __syncthreads();
+  }
+  const u64 least = s_pre;  // the taken bin's least key (0: all)
+  u64* out = keys + static_cast<size_t>(blockIdx.x) * kk + (kk - m.y);
+  for (int i = threadIdx.x; i < m.x; i += kSelThreads) {
+    const u64 key = cand_keys[i];
+    if (key >= least) out[atomicAdd(&s_count, 1)] = key;
+  }
+}
+
+constexpr int kRowSortWarps = 8;
+
+// Stage 3, kk <= 1,024: a warp a query sorts its list descending in
+// registers (R = 512 / 32 or 1,024 / 32 keys a lane, zeros past kk).
+template <int R>
+__global__ void __launch_bounds__(32 * kRowSortWarps)
+topk_sort_rows_kernel(u64* __restrict__ keys, int n, int kk) {
+  const int q = blockIdx.x * kRowSortWarps + (threadIdx.x >> 5);
+  if (q >= n) return;  // whole warps
+  const int lane = threadIdx.x & 31;
+  u64* list = keys + static_cast<size_t>(q) * kk;
+  u64 v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = 32 * r + lane;
+    v[r] = e < kk ? list[e] : 0ull;
+  }
+  warp_sort_desc<R>(v);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = 32 * r + lane;
+    if (e < kk) list[e] = v[r];
+  }
+}
+
+// Stage 3, kk > 1,024: a block of W warps a (query, chunk of kSortChunk
+// keys) sorts the chunk descending, 512 W keys (zeros past it): 128-key
+// runs in registers, then log2(4 W) merge levels in shared memory, each
+// thread placing 16 outputs a level.
+template <int W>
+__global__ void __launch_bounds__(32 * W)
+topk_sort_chunks_kernel(u64* __restrict__ keys, int kk) {
+  extern __shared__ u64 sorted_keys[];  // two buffers of padded(P) keys
+  constexpr int P = 512 * W;
+  static_assert(P / (32 * W) == kMergeOut, "16 outputs a thread a level");
+  const int start = blockIdx.y * kSortChunk;
+  const int len = min(kSortChunk, kk - start);
+  u64* list = keys + static_cast<size_t>(blockIdx.x) * kk + start;
+  const int lane = threadIdx.x & 31;
+  u64* src = sorted_keys;
+  u64* dst = sorted_keys + padded(P);
+  for (int r0 = (threadIdx.x >> 5) * kSortRun; r0 < P; r0 += W * kSortRun) {
+    u64 v[kSortRun / 32];
+#pragma unroll
+    for (int r = 0; r < kSortRun / 32; ++r) {
+      const int e = r0 + 32 * r + lane;
+      v[r] = e < len ? list[e] : 0ull;
+    }
+    warp_sort_desc<kSortRun / 32>(v);
+#pragma unroll
+    for (int r = 0; r < kSortRun / 32; ++r) {
+      src[padded(r0 + 32 * r + lane)] = v[r];
+    }
+  }
+  __syncthreads();
+  for (int run = kSortRun; run < P; run *= 2) {
+    const int out = threadIdx.x * kMergeOut;
+    const int a = out & ~(2 * run - 1);
+    merge_path(src, a, run, out - a, dst, out);
+    __syncthreads();
+    u64* t = src;
+    src = dst;
+    dst = t;
+  }
+  for (int i = threadIdx.x; i < len; i += 32 * W) list[i] = src[padded(i)];
 }
 
 // Stage 3: runs of `run` sorted keys merged pairwise into runs of 2 run,
@@ -500,34 +1137,71 @@ topk_keys_t_kernel(const u64* __restrict__ keys, float* __restrict__ vals,
   }
 }
 
+template <int W>
+cudaError_t launch_sort_chunks(u64* keys, int n, int kk, cudaStream_t stream) {
+  const size_t smem = sizeof(u64) * 2 * padded(512 * W);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_sort_chunks_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 chunks(n, (kk + kSortChunk - 1) / kSortChunk);
+  topk_sort_chunks_kernel<W><<<chunks, 32 * W, smem, stream>>>(keys, kk);
+  return cudaGetLastError();
+}
+
+// Stage 3 by the width of a query's list (its first chunk's).
+cudaError_t launch_sort(u64* keys, int n, int kk, cudaStream_t stream) {
+  const int rows = (n + kRowSortWarps - 1) / kRowSortWarps;
+  switch (sort_width(std::min(kk, kSortChunk))) {
+    case 512:
+      topk_sort_rows_kernel<16><<<rows, 32 * kRowSortWarps, 0, stream>>>(
+          keys, n, kk);
+      return cudaGetLastError();
+    case 1024:
+      topk_sort_rows_kernel<32><<<rows, 32 * kRowSortWarps, 0, stream>>>(
+          keys, n, kk);
+      return cudaGetLastError();
+    case 2048: return launch_sort_chunks<4>(keys, n, kk, stream);
+    case 4096: return launch_sort_chunks<8>(keys, n, kk, stream);
+    default: return launch_sort_chunks<16>(keys, n, kk, stream);
+  }
+}
+
 template <typename T>
 int launch_radix(const void* qk, const void* mk, float* vals, int* idx, int n,
-                 int valid, int top_k, u64* keys, u64* keys2,
-                 cudaStream_t stream) {
+                 int valid, int top_k, u64* keys, u64* keys2, u64* cand,
+                 int cap, int2* meta, float* norms, unsigned* hist,
+                 int* escalations, int* scorings, cudaStream_t stream) {
   const int kk = std::min(top_k, valid);
   cudaError_t err;
   if (kk > 0) {
-    const size_t smem = radix_smem_bytes(64);
-    err = cudaFuncSetAttribute(topk_radix_kernel<T, 64>,
+    const int padded = (valid + 7) / 8 * 8;
+    topk_key_norms_kernel<T><<<(padded + 255) / 256, 256, 0, stream>>>(
+        static_cast<const T*>(mk), norms, valid, padded);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = radix_smem_bytes<T>();
+    err = cudaFuncSetAttribute(topk_radix_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    topk_radix_kernel<T, 64><<<(n + kQT - 1) / kQT, kThreads1, smem, stream>>>(
-        static_cast<const T*>(qk), static_cast<const T*>(mk), keys, n, valid,
-        kk);
+    topk_radix_kernel<T><<<(n + kRQ - 1) / kRQ, kRThreads, smem, stream>>>(
+        static_cast<const T*>(qk), static_cast<const T*>(mk), norms, keys,
+        cand, meta, hist, n, valid, kk, cap, escalations, scorings);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    int p = 1;
-    while (p < std::min(kk, kSortChunk)) p <<= 1;
-    const size_t sort_smem = sizeof(u64) * p;
-    err = cudaFuncSetAttribute(topk_sort_chunks_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(sort_smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 chunks(n, (kk + kSortChunk - 1) / kSortChunk);
-    topk_sort_chunks_kernel<<<chunks, kSortThreads, sort_smem, stream>>>(keys,
-                                                                         kk);
-    err = cudaGetLastError();
+    if (kk < valid) {
+      const size_t sel_smem = sizeof(u64) * cap;
+      err = cudaFuncSetAttribute(topk_cand_select_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(sel_smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      topk_cand_select_kernel<<<n, kSelThreads, sel_smem, stream>>>(
+          keys, cand, meta, kk, cap);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    err = launch_sort(keys, n, kk, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t total = static_cast<size_t>(n) * kk;
     for (long long run = kSortChunk; run < kk; run *= 2) {
@@ -583,30 +1257,49 @@ int memory_topk_chunked_launch(const void* qk, const void* mk, void* vals,
 }
 
 // The default selection for any top_k >= 1 (the wrapper calls it above 256);
-// qk, mk, vals, idx as for memory_topk_launch.  keys: [n, kk] 64-bit
-// scratch, kk = min(top_k, valid) (null when kk = 0); keys2: the same, for
-// the merge passes when kk > 8,192 (else null is allowed).  Returns a
+// qk, mk, vals, idx as for memory_topk_launch; kk = min(top_k, valid).
+// Scratch, null when kk = 0: keys [n, kk] 64-bit; keys2 the same, for the
+// merge passes when kk > 8,192 (else null is allowed); cand [n, cap] 64-bit
+// candidates, 1 <= cap <= 16,384, when kk < valid (else null is allowed);
+// meta [n] int2; norms [ceil(valid / 8) * 8] fp32; hist [n, 2,048] 32-bit
+// when kk < valid and valid > 65,528 (else null is allowed).
+// escalations: null, or one int32 on the device that counts the queries
+// whose first bin held more than cap keys (they take more scorings of the
+// bank); scorings: null, or one int32 on the device raised (atomicMax) to
+// the most passes over the bank that a query tile took.  Returns a
 // cudaError_t code.
 int memory_topk_radix_launch(const void* qk, const void* mk, void* vals,
                              void* idx, int n, int valid, int ck, int top_k,
                              int is_bf16, void* stream, void* keys,
-                             void* keys2) {
+                             void* keys2, void* cand, void* meta, void* norms,
+                             void* hist, void* escalations, void* scorings,
+                             int cap) {
   if (n <= 0) return 0;
-  const int kk = std::min(top_k, std::max(valid, 0));
-  if (ck != 64 || top_k < 1 || (kk > 0 && keys == nullptr) ||
-      (kk > kSortChunk && keys2 == nullptr)) {
+  const int live = std::max(valid, 0);
+  const int kk = std::min(top_k, live);
+  if (ck != 64 || top_k < 1 ||
+      (kk > 0 && (keys == nullptr || meta == nullptr || norms == nullptr)) ||
+      (kk > kSortChunk && keys2 == nullptr) ||
+      (kk < live && (cand == nullptr || cap < 1 || cap > kRMaxCap ||
+                     (live > kRRound && hist == nullptr)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* v = static_cast<float*>(vals);
   int* i = static_cast<int*>(idx);
   u64* k1 = static_cast<u64*>(keys);
   u64* k2 = static_cast<u64*>(keys2);
+  u64* c = static_cast<u64*>(cand);
+  int2* m = static_cast<int2*>(meta);
+  float* nr = static_cast<float*>(norms);
+  unsigned* h = static_cast<unsigned*>(hist);
+  int* e = static_cast<int*>(escalations);
+  int* sc = static_cast<int*>(scorings);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int live = std::max(valid, 0);
   return is_bf16 ? launch_radix<__nv_bfloat16>(qk, mk, v, i, n, live, top_k,
-                                               k1, k2, s)
+                                               k1, k2, c, cap, m, nr, h, e,
+                                               sc, s)
                  : launch_radix<float>(qk, mk, v, i, n, live, top_k, k1, k2,
-                                       s);
+                                       c, cap, m, nr, h, e, sc, s);
 }
 
 const char* memory_topk_error_string(int status) {

@@ -8,10 +8,13 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
   ``csrc/topk_prune.cuh``), then a merge that writes the transposed layout,
   kernels ``csrc/memory_topk.cu:topk_prune_block_kernel`` and
   ``topk_merge_t_kernel``; :func:`merge_lists_t` states the merge.  Above
-  top_k = 256 (any top_k up to M) a radix select over the same scores,
-  sorted and transposed (``topk_radix_kernel``, ``topk_sort_chunks_kernel``,
-  ``topk_rank_merge_kernel``, ``topk_keys_t_kernel``);
-  :func:`radix_threshold` and :func:`radix_lists` state it;
+  top_k = 256 (any top_k up to M) a radix select over the same scores
+  that scores the bank twice in the common case, sorted and transposed
+  (``topk_key_norms_kernel``, ``topk_radix_kernel``,
+  ``topk_cand_select_kernel``, ``topk_sort_rows_kernel`` or
+  ``topk_sort_chunks_kernel``, ``topk_rank_merge_kernel``,
+  ``topk_keys_t_kernel``); :func:`radix_threshold` and :func:`radix_lists`
+  state it;
 * :func:`topk_select_chunked` — ``chunked_topk_t``
   (``_kernel_tournament_chunked``), the same kernels with the bank blocks
   newest first and a running floor per query in place of the TPU kernel's
@@ -60,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -76,6 +80,9 @@ PRUNED_MAX_K = 256  # the largest top_k of every selection kernel but the
 #                     default one's large-k path
 RADIX_SORT_CHUNK = 8192  # memory_topk.cu's kSortChunk: keys sorted in shared
 #                          memory; longer lists take merge passes
+RADIX_CAP = 4096  # candidates a query keeps at least (below: valid)
+RADIX_MAX_CAP = 16384  # memory_topk.cu's kRMaxCap: and at most
+RADIX_ROW_SORT = 1024  # the longest list memory_topk.cu sorts a warp a query
 
 
 def topk_select_plain(qk, mk, valid_tokens, top_k: int):
@@ -100,7 +107,8 @@ def _lib() -> ctypes.CDLL:
                 [_P] * 4 + [_I] * 5 + [_P] * 3)
     lib.memory_topk_chunked_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P] * 5
     lib.memory_topk_chunked_launch.restype = ctypes.c_int
-    lib.memory_topk_radix_launch.argtypes = [_P] * 4 + [_I] * 5 + [_P] * 3
+    lib.memory_topk_radix_launch.argtypes = [_P] * 4 + [_I] * 5 + [_P] * 9 + [
+        _I]
     lib.memory_topk_radix_launch.restype = ctypes.c_int
     return lib
 
@@ -214,21 +222,28 @@ def _check_lists(valid: int, most: int) -> int:
 
 
 def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
-                top_k: int, escalations: torch.Tensor | None = None):
+                top_k: int, escalations: torch.Tensor | None = None,
+                scorings: torch.Tensor | None = None):
     """Top-k selection by pruning each bank block's scores (as
     :func:`topk_select_sort`) and merging the blocks' sorted lists into the
     transposed outputs; with one live block the block kernel writes them
     and no merge runs (plain: topk_select_plain).  ``escalations``, a CUDA
     int32 tensor of one element, gains the number of (query, bank block)
     rows that took the exact escalation.  Above PRUNED_MAX_K, any top_k up
-    to M takes the radix select (:func:`radix_lists` states it), which
-    escalates no row."""
+    to M takes the radix select (:func:`radix_lists` states it); there
+    ``escalations`` gains the number of queries whose first bin held more
+    than :func:`radix_cap` keys, and ``scorings``, a CUDA int32 tensor of
+    one element, is raised to the most passes over the bank that a query
+    tile took (:func:`radix_threshold`'s ``scorings``); it is left as it is
+    at PRUNED_MAX_K and below."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
     if top_k > PRUNED_MAX_K:
-        return _topk_select_radix(qk, mk, valid_tokens, top_k, escalations)
+        return _topk_select_radix(qk, mk, valid_tokens, top_k, escalations,
+                                  scorings)
     valid = _check_selection(qk, mk, valid_tokens, top_k)
     _check_counter(escalations, qk)
+    _check_counter(scorings, qk, "scorings")
     part = _block_lists(qk, _check_lists(valid, _MAX_LISTS), top_k)
     vals, idx = _transposed_outputs(qk, top_k)
     lib = _lib()
@@ -241,22 +256,45 @@ def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     return vals, idx
 
 
-def _topk_select_radix(qk, mk, valid_tokens, top_k: int, escalations):
-    """:func:`topk_select` above PRUNED_MAX_K: the radix select, its keys'
-    sort (with merge passes above RADIX_SORT_CHUNK keys) and the transposed
-    write, kernels of ``csrc/memory_topk.cu``."""
+def radix_cap(valid: int, top_k: int) -> int:
+    """Candidates a query of the radix select keeps: four for each of the
+    top_k, within [RADIX_CAP, RADIX_MAX_CAP] (a deeper k-th key falls in a
+    fuller bin), or the valid tokens when fewer (no bin holds more)."""
+    return max(1, min(valid, RADIX_MAX_CAP, max(RADIX_CAP, 4 * top_k)))
+
+
+def _topk_select_radix(qk, mk, valid_tokens, top_k: int, escalations,
+                       scorings):
+    """:func:`topk_select` above PRUNED_MAX_K: the key norms, the radix
+    select, the candidates' top to the lists, the lists' sort (a warp a
+    query up to RADIX_ROW_SORT keys; above, chunks with merge passes above
+    RADIX_SORT_CHUNK keys) and the transposed write, kernels of
+    ``csrc/memory_topk.cu``."""
     valid = _check_selection(qk, mk, valid_tokens, top_k, most=None)
     _check_counter(escalations, qk)
-    n, kk = qk.shape[0], min(top_k, valid)
-    keys = (torch.empty((n, kk), dtype=torch.int64, device=qk.device)
-            if kk else None)
-    keys2 = torch.empty_like(keys) if kk > RADIX_SORT_CHUNK else None
+    _check_counter(scorings, qk, "scorings")
+    n, kk, cap = qk.shape[0], min(top_k, valid), radix_cap(valid, top_k)
+    dev = qk.device
+    keys = norms = meta = cand = keys2 = hist = None
+    if kk:
+        keys = torch.empty((n, kk), dtype=torch.int64, device=dev)
+        norms = torch.empty(-(-valid // 8) * 8, dtype=torch.float32,
+                            device=dev)
+        meta = torch.empty((n, 2), dtype=torch.int32, device=dev)
+        if kk < valid:
+            cand = torch.empty((n, cap), dtype=torch.int64, device=dev)
+            if valid > RADIX_ROUND:
+                hist = torch.empty((n, RADIX_HIST_BINS), dtype=torch.int32,
+                                   device=dev)
+        if kk > RADIX_SORT_CHUNK:
+            keys2 = torch.empty_like(keys)
     vals, idx = _transposed_outputs(qk, top_k)
     lib = _lib()
     status = lib.memory_topk_radix_launch(
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(), n,
         valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk), _ptr(keys),
-        _ptr(keys2))
+        _ptr(keys2), _ptr(cand), _ptr(meta), _ptr(norms), _ptr(hist),
+        _ptr(escalations), _ptr(scorings), cap)
     build.check("memory_topk", lib, status)
     topk_select.launches += 1
     return vals, idx
@@ -478,63 +516,112 @@ def merge_lists_t(lists: torch.Tensor, top_k: int):
 
 DEAD_KEY = -2 ** 63  # the kernels' key 0 (sort_keys' shift): an empty slot
 
-RADIX_BITS = 8  # memory_topk.cu's digit: four passes over the 32 score bits
+# memory_topk.cu's digits of the radix select over the 64-bit keys (score
+# bits, then ~id): (shift, width) from the top, five of RADIX_BITS, then 9
+RADIX_BITS = 11
+RADIX_DIGITS = tuple((53 - 11 * i, RADIX_BITS) for i in range(5)) + ((0, 9),)
+RADIX_ROUND = 65528  # memory_topk.cu's kRRound: tokens a tile's 16-bit
+#                      histograms count before they go to RADIX_HIST_BINS-bin
+#                      32-bit ones in device memory
+RADIX_HIST_BINS = 2 ** RADIX_BITS
 
 
-def _ords(keys: torch.Tensor) -> torch.Tensor:
-    """The keys' score bits (ord, the kernels' unsigned high word) as int64
-    in [0, 2^32); 0 for a dead key."""
-    return (keys >> 32) + 2 ** 31
+class RadixBins(NamedTuple):
+    """Per query [N], the final bin of the radix select
+    (:func:`radix_threshold`): its keys are those in [lo, hi]; ``greater``
+    keys lie above hi and ``count`` in the bin, of which the ``need``
+    largest complete the top kk; ``scorings`` the passes over the bank the
+    query takes (the kernel's tile of 32 queries takes its most);
+    ``spilled`` whether its first bin held more than the cap."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+    greater: torch.Tensor
+    count: torch.Tensor
+    need: torch.Tensor
+    scorings: torch.Tensor
+    spilled: torch.Tensor
 
 
-def radix_threshold(keys: torch.Tensor, valid: int, top_k: int):
+def radix_threshold(keys: torch.Tensor, valid: int, top_k: int,
+                    cap: int | None = None) -> RadixBins:
     """Plain statement of the large-k selection's digits over keys
-    [N, >= valid] (:func:`sort_keys`; tokens past ``valid`` never count)
-    -> (tau [N], the ord of each query's kk-th largest key, kk =
-    min(top_k, valid) >= 1; need [N], how many keys of ord tau are among
-    its top kk).  Four passes of RADIX_BITS from the top: each counts, in
-    256 bins, the next digit of the live ords that agree with the digits
-    chosen so far, and chooses the bin at which the counts from the top
-    reach the rank still sought, which becomes the rank within that bin."""
-    ords = _ords(keys[:, :valid])
-    n = ords.shape[0]
-    prefix = torch.zeros(n, dtype=torch.int64)
-    rank = torch.full((n,), min(top_k, valid), dtype=torch.int64)
-    bins = 2 ** RADIX_BITS
-    for shift in range(32 - RADIX_BITS, -1, -RADIX_BITS):
-        agree = (ords >> (shift + RADIX_BITS)) == prefix[:, None]
-        digit = (ords >> shift) & (bins - 1)
+    [N, >= valid] (:func:`sort_keys`; tokens past ``valid`` never count;
+    ``cap`` by default :func:`radix_cap`), kk = min(top_k, valid) >= 1.
+
+    With kk == valid every live key is the answer: one pass over the bank
+    (scorings 1), no bin (lo = hi = DEAD_KEY, greater = kk).  Otherwise
+    pass 1 counts the first digit of RADIX_DIGITS of every live key (the
+    keys' bits as the kernel's unsigned words) and picks the bin at which
+    the counts from the top reach the rank kk; the keys above it are in
+    the answer and the rank becomes the rank within the bin.  Pass 2 keeps
+    the bin's keys as candidates when they number at most ``cap``; else it
+    counts their next digit and picks that digit's bin the same way, and
+    so on (a pass each) until a bin fits.  Keys are distinct, so the last
+    digit's bin holds one key at most."""
+    n, kk = keys.shape[0], min(top_k, valid)
+    cap = radix_cap(valid, top_k) if cap is None else cap
+    one = torch.ones(n, dtype=torch.int64)
+    if kk == valid:
+        dead = torch.full((n,), DEAD_KEY, dtype=torch.int64)
+        return RadixBins(dead, dead.clone(), kk * one, 0 * one, 0 * one, one,
+                         torch.zeros(n, dtype=torch.bool))
+    u = keys[:, :valid] ^ DEAD_KEY  # the unsigned keys' bits
+    pre = torch.zeros(n, dtype=torch.int64)
+    mask = torch.zeros(n, dtype=torch.int64)
+    rank, greater, scorings = kk * one, 0 * one, one.clone()
+    lo, hi, count = pre.clone(), pre.clone(), pre.clone()
+    active = torch.ones(n, dtype=torch.bool)
+    spilled = None
+    for shift, width in RADIX_DIGITS:
+        bins = 2 ** width
+        match = ((u ^ pre[:, None]) & mask[:, None]) == 0
+        digit = (u >> shift) & (bins - 1)
         hist = torch.zeros((n, bins), dtype=torch.int64).scatter_add_(
-            1, digit, agree.long())
-        from_top = hist.flip(1).cumsum(1)                # bins 255, 254, ...
+            1, digit, match.long())
+        from_top = hist.flip(1).cumsum(1)                 # bins from the top
         pos = (from_top >= rank[:, None]).long().argmax(1)
-        chosen = bins - 1 - pos
-        above = from_top.gather(1, pos[:, None])[:, 0] - hist.gather(
-            1, chosen[:, None])[:, 0]
-        prefix = prefix * bins + chosen
-        rank = rank - above
-    return prefix, rank
+        b = bins - 1 - pos
+        in_bin = hist.gather(1, b[:, None])[:, 0]
+        above = from_top.gather(1, pos[:, None])[:, 0] - in_bin
+        rank = torch.where(active, rank - above, rank)
+        greater = torch.where(active, greater + above, greater)
+        scorings = scorings + active.long()
+        pre = torch.where(active, pre | (b << shift), pre)
+        ones = torch.tensor(bins - 1, dtype=torch.int64) << shift  # wraps
+        mask = torch.where(active, mask | ones, mask)
+        if spilled is None:
+            spilled = in_bin > cap
+        done = active & (in_bin <= cap)
+        low = (1 << shift) - 1
+        lo = torch.where(done, pre ^ DEAD_KEY, lo)
+        hi = torch.where(done, (pre | low) ^ DEAD_KEY, hi)
+        count = torch.where(done, in_bin, count)
+        active &= ~done
+        if not active.any():
+            break
+    return RadixBins(lo, hi, greater, count, rank, scorings, spilled)
 
 
-def radix_lists(keys: torch.Tensor, valid: int, top_k: int):
+def radix_lists(keys: torch.Tensor, valid: int, top_k: int,
+                cap: int | None = None):
     """Plain statement of the large-k selection over keys [N, >= valid]
     (:func:`sort_keys`) -> (vals [top_k, N], idx [top_k, N]), as the
-    kernels write them.  With :func:`radix_threshold`'s (tau, need), the
-    compaction keeps every key of ord > tau and, of the keys of ord tau,
-    the first ``need`` in id order (a running count over the bank): ties
-    at tau go to the lowest ids.  The kk = min(top_k, valid) keys kept are
-    sorted descending; the slots from kk hold (-1e30, 0)."""
+    kernels write them.  With :func:`radix_threshold`'s bins, a query's
+    answer is its keys above its bin and the ``need`` largest of the keys
+    in it (the candidates; keys order by score, then by lowest id), sorted
+    descending; the slots from kk = min(top_k, valid) hold (-1e30, 0)."""
     n, kk = keys.shape[0], min(top_k, valid)
     lists = torch.full((n, top_k), DEAD_KEY, dtype=torch.int64)
     if kk:
-        tau, need = radix_threshold(keys, valid, top_k)
+        bins = radix_threshold(keys, valid, top_k, cap)
         live = keys[:, :valid]
-        ords = _ords(live)
-        tied = ords == tau[:, None]
-        taken = (ords > tau[:, None]) | (
-            tied & (tied.long().cumsum(1) <= need[:, None]))
-        kept = torch.where(taken, live, torch.full_like(live, DEAD_KEY))
-        lists[:, :kk] = kept.topk(kk, dim=1).values
+        dead = torch.full_like(live, DEAD_KEY)
+        in_bin = (live >= bins.lo[:, None]) & (live <= bins.hi[:, None])
+        cands = torch.where(in_bin, live, dead).sort(1, descending=True)
+        least = cands.values.gather(1, (bins.need - 1).clamp(min=0)[:, None])
+        taken = (live > bins.hi[:, None]) | (
+            in_bin & (bins.need[:, None] > 0) & (live >= least))
+        lists[:, :kk] = torch.where(taken, live, dead).topk(kk, dim=1).values
     vals, idx = unpack_keys(lists)
     return vals.T.contiguous(), idx.T.contiguous()
 

@@ -10,7 +10,11 @@ frame-30 interacts per read, with its launch and correctness checks) on the
 older tree is measured by the same protocol.  Run it for two trees in
 turns (A, B, B, A) within one call to compare them.  Prints each read's
 fps median and range and its frame-30 latency; the results also go to
-``chiprun_out/engine_compare<--tag>.json``.
+``chiprun_out/engine_compare<--tag>.json``.  With ``--large-k`` it then
+runs ``chip_smoke.large_k_engine`` on the same engine (the fused read at
+top_k LARGE_K_ENGINE against the gather read and the fused read at top_k
+50, LARGE_K_ITERS frame-0 interacts each, interleaved) and prints their
+medians.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose eva_vos_tpu_torch is timed")
     ap.add_argument("--tag", default="", help="suffix of the JSON file's name")
+    ap.add_argument("--large-k", action="store_true",
+                    help="also time the engine at top_k LARGE_K_ENGINE")
     args = ap.parse_args(argv)
     import torch
 
@@ -53,7 +59,11 @@ def main(argv=None) -> int:
     print(f"[card] {card}; package {root}", flush=True)
     build.build_all()
     results = {"card": card, "root": str(root)}
-    smoke.engine_phase(torch, results, card)
+    _, (engine, _, masks), (feats, pad) = smoke.engine_phase(torch, results,
+                                                             card)
+    if args.large_k:
+        results["large_k_engine"] = smoke.large_k_engine(
+            torch, card, engine, feats, pad, masks)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"engine_compare{args.tag}.json").write_text(
@@ -62,6 +72,12 @@ def main(argv=None) -> int:
         print(f"[compare{args.tag}] {path}: fps median {r['fps']:.2f} (min "
               f"{r['fps_min']:.2f}, max {r['fps_max']:.2f}); frame-30 "
               f"interact {r['interact30_s'] * 1e3:.1f} ms", flush=True)
+    if args.large_k:
+        for read, ms in results["large_k_engine"]["ms"].items():
+            print(f"[compare{args.tag}] top_k {smoke.LARGE_K_ENGINE} engine, "
+                  f"{read}: frame-0 interact median "
+                  f"{ms[len(ms) // 2]:.1f} ms (min {ms[0]:.1f}, max "
+                  f"{ms[-1]:.1f})", flush=True)
     return 0
 
 

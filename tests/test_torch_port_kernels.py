@@ -33,9 +33,11 @@ from eva_vos_tpu_torch.kernels import (KernelConfig, build, fused_readout,
 from eva_vos_tpu_torch.kernels.memory_readout import (readout_geometry,
                                                       readout_staged_rows)
 from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
+                                                   RADIX_ROUND,
                                                    RADIX_SORT_CHUNK,
                                                    SORT_CAPACITY,
                                                    iter_segments,
+                                                   radix_threshold,
                                                    resident_lists,
                                                    resident_rows,
                                                    resident_segments,
@@ -983,3 +985,117 @@ def test_other_selections_raise_above_256(cuda, select):
     with pytest.raises(ValueError, match="256"):
         fused_readout(mk, qk, mv, 257, 3000,
                       KernelConfig(readout_method="chunked"))
+
+
+# #1 above 256 where a query's first bin holds more than its cap of keys (the
+# extra scorings), where every score ties, and where kk == valid (one
+# scoring, then the sort of every live token).
+
+def _radix_counters(device):
+    return (torch.zeros(1, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
+def _radix_plan(qk, mk, valid, top_k):
+    """The plain statement's bins over the plain scores (exact here)."""
+    scores = _scores(mk[:valid].cpu().float(), qk.cpu().float())
+    ids = torch.arange(valid).expand_as(scores)
+    keys = sort_keys(scores, ids, torch.ones_like(ids, dtype=torch.bool))
+    return radix_threshold(keys, valid, top_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [512, 2048])
+@pytest.mark.parametrize("m", [20000, 70000])
+def test_topk_select_large_k_bin_overflows_cap(cuda, dtype, top_k, m):
+    """A tight cluster of integer keys (one base key, four channels moved by
+    one): every score is exact in both dtypes, and 20,000 or 70,000 of them
+    crowd into a few bins of the first digit, past the cap, so queries take
+    extra scorings (70,000: past RADIX_ROUND tokens, whose histograms go to
+    device memory).  The selection is the oracle's exactly (ties to the
+    lowest id), the overflow counter and the passes are the plain
+    statement's, and the counter is above 0."""
+    rng = np.random.default_rng(top_k)
+    mk = np.tile(rng.integers(-2, 3, 64), (m, 1))
+    for _ in range(4):
+        mk[np.arange(m), rng.integers(0, 64, m)] += rng.integers(-1, 2, m)
+    qk = rng.integers(-2, 3, (300, 64))
+    qk, mk = (torch.from_numpy(x.astype(np.float32)).to(cuda, dtype)
+              for x in (qk, mk))
+    esc, passes = _radix_counters(cuda)
+    vals, idx = topk_select(qk, mk, m, top_k, escalations=esc,
+                            scorings=passes)
+    torch.cuda.synchronize()
+    plan = _radix_plan(qk, mk, m, top_k)
+    assert int(plan.spilled.sum()) > 0
+    assert int(esc) == int(plan.spilled.sum())
+    assert int(passes) == int(plan.scorings.max()) >= 3
+    q, k = qk.double().cpu().numpy(), mk.double().cpu().numpy()
+    s = (2 * q @ k.T - (k * k).sum(-1)) / 8.0  # exact: small integers
+    order = np.lexsort((np.broadcast_to(np.arange(m), s.shape), -s), axis=1)
+    np.testing.assert_array_equal(idx.cpu().numpy(), order[:, :top_k].T)
+    ref_vals, _ = topk_select_plain(qk, mk, m, top_k)
+    assert torch.equal(vals, ref_vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k", [2048, 5000])
+def test_topk_select_large_k_identical_keys_past_cap(cuda, dtype, top_k):
+    """20,000 identical keys: every query's bins spill down the score digits
+    into the id digits, and the top k are ids 0..k-1."""
+    rng = np.random.default_rng(9)
+    m = 20000
+    mk = torch.from_numpy(np.tile(rng.standard_normal((1, 64)), (m, 1))
+                          .astype(np.float32)).to(cuda, dtype)
+    qk = torch.from_numpy(rng.standard_normal((45, 64)).astype(np.float32)
+                          ).to(cuda, dtype)
+    esc, passes = _radix_counters(cuda)
+    _, idx = topk_select(qk, mk, m, top_k, escalations=esc, scorings=passes)
+    want = torch.arange(top_k, dtype=torch.int32, device=cuda)
+    assert torch.equal(idx, want[:, None].expand(top_k, 45))
+    assert int(esc) == 45 and int(passes) > 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_select_large_k_every_live_token(cuda, dtype):
+    """Fill 1 (1,620 valid tokens of a 72-slot bank) at top_k 2,048 and
+    N = 8,100: kk == valid, so one scoring writes every live key and the
+    sort orders them all; the 428 slots past them hold (-1e30, 0)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qk = torch.randn((8100, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((72 * FRAME_TOKENS, 64), generator=g,
+                     device=cuda).to(dtype)
+    esc, passes = _radix_counters(cuda)
+    vals, idx = topk_select(qk, mk, FRAME_TOKENS, 2048, escalations=esc,
+                            scorings=passes)
+    torch.cuda.synchronize()
+    assert int(esc) == 0 and int(passes) == 1
+    pv, pi = topk_select_plain(qk, mk, FRAME_TOKENS, FRAME_TOKENS)
+    _assert_same_selection(vals[:FRAME_TOKENS].T, idx[:FRAME_TOKENS].T,
+                           pv.T, pi.T, 1e-4)
+    assert torch.all(vals[FRAME_TOKENS:] == -1e30)
+    assert torch.all(idx[FRAME_TOKENS:] == 0)
+    # every live token once
+    assert torch.equal(idx[:FRAME_TOKENS].sort(0).values,
+                       torch.arange(FRAME_TOKENS, dtype=torch.int32,
+                                    device=cuda)[:, None].expand(-1, 8100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", [100000, 70000])
+@pytest.mark.parametrize("top_k", [512, 2048])
+def test_topk_select_large_k_past_round(cuda, dtype, valid, top_k):
+    """Banks of more than RADIX_ROUND valid tokens: the histograms are
+    counted in rounds and added up in device memory; the selection is the
+    plain version's (near-ties aside)."""
+    g = torch.Generator(device=cuda).manual_seed(valid + top_k)
+    qk = torch.randn((200, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((100000, 64), generator=g, device=cuda).to(dtype)
+    assert valid > RADIX_ROUND
+    vals, idx = topk_select(qk, mk, valid, top_k)
+    pv, pi = topk_select_plain(qk, mk, valid, top_k + 1)
+    _assert_same_selection(vals.T, idx.T, pv.T, pi.T, 1e-4)

@@ -3,13 +3,17 @@ package.
 
 On the card the default read (#1 ``topk_select`` chained into #2
 ``topk_readout``) takes any top_k in [1, M]; above 256 #1 runs a radix
-select whose rules ``kernels.memory_topk`` states (``radix_threshold``,
-``radix_lists``).  Here:
+select whose rules ``kernels.memory_topk`` states (``radix_threshold``: the
+11-bit digits of the 64-bit keys, the final bin of each query, its
+candidates up to a cap and the passes over the bank; ``radix_lists``: the
+selection).  Here:
 
 * (a) those rules against a numpy oracle (``lexsort`` by (-score, id)) and
   the JAX ``memory_affinity_topk``: top_k 257, 300, 1,000 and M, fp32 and
   bf16-rounded keys, ``valid_tokens`` below top_k, identical keys and
-  exact ties at the threshold across bank blocks;
+  exact ties at the threshold across bank blocks; bins that overflow the
+  cap (small caps, so that the rules go down the score digits into the id
+  digits) and kk == valid (every live token, one pass);
 * (b) the port's ``memory_readout`` ('gather', 'scatter', and 'fused',
   which runs the kernels' plain versions on the CPU) against the JAX
   ``memory_readout`` ('scatter' and 'gather') at top_k 300 and 1,000;
@@ -48,7 +52,8 @@ from eva_vos_tpu_torch.data import synthetic_video
 from eva_vos_tpu_torch.engine import (EngineConfig, InferenceEngine, pad_mask,
                                       prepare_video)
 from eva_vos_tpu_torch.kernels import fused_readout_plain
-from eva_vos_tpu_torch.kernels.memory_topk import (radix_lists,
+from eva_vos_tpu_torch.kernels.memory_topk import (DEAD_KEY, radix_cap,
+                                                   radix_lists,
                                                    radix_threshold, sort_keys)
 from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
 from eva_vos_tpu_torch.ops import memory_attention as mem
@@ -115,30 +120,56 @@ def test_radix_lists_match_oracle(kind, top_k, valid):
     assert (vals[kk:] == -1e30).all() and (idx[kk:] == 0).all()
 
 
+def _check_bins(keys, valid, top_k, cap=None):
+    """The bins of ``radix_threshold`` against a full sort of the keys: the
+    kk-th largest key lies in [lo, hi], ``greater`` keys above hi and
+    ``count`` <= cap in the bin, of which the ``need`` largest close the
+    top kk; kk == valid takes one pass and no bin."""
+    bins = radix_threshold(keys, valid, top_k, cap)
+    cap = radix_cap(valid, top_k) if cap is None else cap
+    live = keys[:, :valid]
+    kk = min(top_k, valid)
+    if kk == valid:
+        assert (bins.greater == kk).all() and (bins.need == 0).all()
+        assert (bins.scorings == 1).all() and not bins.spilled.any()
+        return bins
+    kth = live.sort(1, descending=True).values[:, kk - 1]
+    assert ((bins.lo <= kth) & (kth <= bins.hi)).all()
+    in_bin = ((live >= bins.lo[:, None]) & (live <= bins.hi[:, None])).sum(1)
+    torch.testing.assert_close(bins.greater, (live > bins.hi[:, None]).sum(1),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(bins.count, in_bin, rtol=0, atol=0)
+    assert (bins.count <= cap).all()
+    assert ((bins.need >= 1) & (bins.need <= bins.count)).all()
+    torch.testing.assert_close(bins.greater + bins.need,
+                               torch.full_like(bins.need, kk), rtol=0, atol=0)
+    assert (bins.scorings >= 2).all()
+    assert torch.equal(bins.spilled, bins.scorings > 2)
+    return bins
+
+
 @pytest.mark.parametrize("kind,top_k,valid", RULE_CASES, ids=str)
 def test_radix_threshold_digits(kind, top_k, valid):
-    """tau is the ord of the kk-th largest key and need the keys of that
-    ord among the top kk, as a full sort of the ords gives them."""
+    """Each query's final bin holds its kk-th largest key, the keys above
+    it and in it are counted as a full sort counts them, and with random
+    keys the first digit's bin fits the cap: two passes."""
     mk, qk = _bank(kind)
     keys, _ = _keys(mk, qk)
-    tau, need = radix_threshold(keys, valid, top_k)
-    kk = min(top_k, valid)
-    ords = (keys[:, :valid] >> 32) + 2 ** 31
-    kth = ords.sort(1, descending=True).values[:, kk - 1]
-    torch.testing.assert_close(tau, kth, rtol=0, atol=0)
-    torch.testing.assert_close(
-        need, kk - (ords > kth[:, None]).sum(1), rtol=0, atol=0)
+    bins = _check_bins(keys, valid, top_k)
+    if min(top_k, valid) < valid:
+        assert (bins.scorings == 2).all()
 
 
 @pytest.mark.parametrize("top_k", [257, 1000, M])
 def test_radix_identical_keys(top_k):
-    """Every score of a row ties: tau is that score's ord, need is kk, and
-    the ids are 0..kk-1, the lowest."""
+    """Every score of a row ties: one bin holds the whole bank (within the
+    cap, M), need is kk (no key above it), and the ids are 0..kk-1, the
+    lowest."""
     mk, qk = _bank("identical")
     keys, _ = _keys(mk, qk)
-    tau, need = radix_threshold(keys, M, top_k)
-    assert (need == top_k).all()
-    assert (tau == (keys[:, 0] >> 32) + 2 ** 31).all()
+    bins = _check_bins(keys, M, top_k)
+    if top_k < M:
+        assert (bins.need == top_k).all() and (bins.count == M).all()
     _, idx = radix_lists(keys, M, top_k)
     want = torch.arange(top_k, dtype=torch.int32)[:, None].expand(top_k, N)
     assert torch.equal(idx, want)
@@ -147,15 +178,65 @@ def test_radix_identical_keys(top_k):
 @pytest.mark.parametrize("top_k", [257, 300, 1000, 4999])
 def test_radix_ties_at_threshold(top_k):
     """Seven keys repeated along a 5,000-token bank (three bank blocks of
-    2,048): tau falls inside a run of 714 tied scores spread over every
-    block, and the tied keys taken are the lowest ids, as the oracle's."""
+    2,048): the kk-th key falls inside a run of 714 tied scores spread over
+    every block, of which only some are taken, and the tied keys taken are
+    the lowest ids, as the oracle's."""
     mk, qk = _bank("tied", m=5000, seed=3)
     keys, scores = _keys(mk, qk)
-    tau, need = radix_threshold(keys, 5000, top_k)
-    ords = (keys >> 32) + 2 ** 31
-    assert ((ords == tau[:, None]).sum(1) > need).any()
+    _check_bins(keys, 5000, top_k)
+    kth = keys.sort(1, descending=True).values[:, top_k - 1]
+    ords = keys >> 32
+    tied = (ords == (kth >> 32)[:, None]).sum(1)
+    taken = top_k - (ords > (kth >> 32)[:, None]).sum(1)
+    assert (tied > taken).any()
     _, idx = radix_lists(keys, 5000, top_k)
     np.testing.assert_array_equal(idx.T.numpy(), _oracle(scores, 5000, top_k))
+
+
+# (kind, top_k, valid, cap): bins past small caps take more passes, down
+# the score digits and, where scores tie, into the id digits
+OVERFLOW_CASES = [("fp32", 300, M, 8), ("bf16", 1000, M, 64),
+                  ("tied", 300, 5000, 100), ("tied", 1000, 5000, 2),
+                  ("identical", 257, M, 1), ("identical", 1000, M, 500)]
+
+
+def _overflow_bank(kind):
+    if kind == "tied":
+        return _bank("tied", m=5000, seed=3)
+    return _bank(kind)
+
+
+@pytest.mark.parametrize("kind,top_k,valid,cap", OVERFLOW_CASES, ids=str)
+def test_radix_bin_overflows_cap(kind, top_k, valid, cap):
+    """A first bin of more than ``cap`` keys spills: the rules count the
+    next digit within it, a pass each, until a bin fits; the selection is
+    still the oracle's, ties to the lowest ids."""
+    mk, qk = _overflow_bank(kind)
+    keys, scores = _keys(mk, qk)
+    bins = _check_bins(keys, valid, top_k, cap)
+    assert bins.spilled.any() and (bins.scorings >= 3).any()
+    if kind in ("identical", "tied"):  # into the id digits
+        assert (bins.scorings > 5).any()
+    vals, idx = radix_lists(keys, valid, top_k, cap)
+    want = _oracle(scores, valid, top_k)
+    np.testing.assert_array_equal(idx.T.numpy(), want)
+    np.testing.assert_array_equal(
+        vals.T.numpy(), np.take_along_axis(scores[:, :valid].numpy(), want, 1))
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "identical"])
+@pytest.mark.parametrize("top_k,valid", [(300, 300), (M, M), (1000, 700)])
+def test_radix_all_live_tokens(kind, top_k, valid):
+    """kk == valid: every live key is the answer, in one pass; slots past
+    the live tokens hold (-1e30, 0)."""
+    mk, qk = _bank(kind)
+    keys, scores = _keys(mk, qk)
+    bins = _check_bins(keys, valid, top_k)
+    assert (bins.lo == DEAD_KEY).all() and (bins.count == 0).all()
+    vals, idx = radix_lists(keys, valid, top_k)
+    want = _oracle(scores, valid, top_k)
+    np.testing.assert_array_equal(idx[:valid].T.numpy(), want)
+    assert (vals[valid:] == -1e30).all() and (idx[valid:] == 0).all()
 
 
 def _assert_near(idx, w, jidx, jw, jvals):
@@ -194,6 +275,27 @@ def test_radix_lists_match_jax(kind, top_k, valid):
     # the dead slots weigh 0 on both sides
     np.testing.assert_array_equal(w[:, kk:], 0.0)
     np.testing.assert_array_equal(np.asarray(jw)[:, kk:], 0.0)
+
+
+@pytest.mark.parametrize("kind,top_k,valid,cap", [
+    ("fp32", 300, M, 8), ("integer", 1000, M, 16), ("bf16", 257, M, 1),
+    ("fp32", 500, 500, None), ("integer", M, M, None)], ids=str)
+def test_radix_overflow_matches_jax(kind, top_k, valid, cap):
+    """The rules with a spilled first bin (small caps) and with kk == valid
+    against the JAX ``memory_affinity_topk``, as above."""
+    mk, qk = _bank(kind)
+    keys, _ = _keys(mk, qk)
+    if cap is not None:
+        assert radix_threshold(keys, valid, top_k, cap).spilled.any()
+    vals, idx = radix_lists(keys, valid, top_k, cap)
+    w = mem.softmax_weights(vals.T).numpy()
+    jw, jidx = jx_mem.memory_affinity_topk(jnp.asarray(mk), jnp.asarray(qk),
+                                           top_k, valid)
+    jvals = np.take_along_axis(np.asarray(jx_mem._scores(
+        jnp.asarray(mk), jnp.asarray(qk), valid)), np.asarray(jidx), 1)
+    if kind == "integer":
+        np.testing.assert_array_equal(idx.T.numpy(), np.asarray(jidx))
+    _assert_near(idx.T.numpy(), w, np.asarray(jidx), np.asarray(jw), jvals)
 
 
 READ_N, READ_CV = 200, 64
