@@ -70,14 +70,16 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    just before each step and read just after, showing #1 and #2 once
    each a fused step and no other kernel, and STEP_ITERS untraced steps
    of each read after a warm-up, interleaved (median and range);
-6c. the default read above top_k 256 (#1's radix select, #2's sliced
-   staging): #1 on the clustered banks of FILLS at N = 8100, top_k 512 and
+6c. the default read above top_k 256 (#1's radix select, #2's large-k
+   kernel): #1 on the clustered banks of FILLS at N = 8100, top_k 512 and
    2,048 in bf16 and 512 in fp32 at fill 12, against the plain selection
    (``check_selection``'s rule; the slots past the live tokens (-1e30, 0)),
    with its queries whose first bin overflowed the candidate cap and the
    most scorings of the bank a query tile took, and #2 on its picks
-   against the plain readout, each with its device ms split per kernel,
-   plain and library times and bound; #1 at top_k 50 on the fill-72 bank
+   against the plain readout (two runs equal bit for bit), with its rows
+   staged, picks per staged row and stages summed dense, counted on the
+   card against the plain statement of its plan, each with its device ms
+   split per kernel, plain and library times and bound; #1 at top_k 50 on the fill-72 bank
    beside them (the kernels of the same file); #1's merge passes (top_k
    20,000); phase 6's engine at top_k 512, fused against
    gather at frame 0 and frame 30 (within PROB_ATOL / PROB_FRAC), #1 and #2
@@ -290,7 +292,7 @@ DP_STAT_TOL = 1e-3
 LABEL_CALLS = 200
 
 # the large-k phase (6c): #1 above 256 (the radix select) and #2 above 256
-# (the sliced readout) on the clustered banks of FILLS at N = N_QUERIES in
+# (the large-k readout) on the clustered banks of FILLS at N = N_QUERIES in
 # bf16 at each LARGE_K, and in fp32 at LARGE_K_FP32 (fill, top_k); the merge
 # passes of #1 (more than 8,192 keys a query) on LARGE_K_MERGE (N, M,
 # top_k), checked untimed; phase 6's engine at top_k LARGE_K_ENGINE, fused
@@ -309,7 +311,7 @@ RADIX_KERNELS = ("topk_key_norms_kernel", "topk_radix_kernel",
                  "topk_keys_t_kernel")
 # #1's kernels at top_k <= 256
 PRUNED_KERNELS = ("topk_prune_block_kernel", "topk_merge_t_kernel")
-SLICED_KERNEL = "readout_sliced_kernel"
+LARGE_K_READOUT = "readout_large_k_kernel"
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
@@ -384,7 +386,7 @@ REPLACES = {"memory_topk": "eva_vos_tpu/kernels/memory_topk.py:380",
 # the large-k paths of #1 and #2 in the kernels line, by the kernel whose
 # source and TPU kernel they share
 LARGE_K_LINE = {"memory_topk_radix": "memory_topk",
-                "memory_readout_sliced": "memory_readout"}
+                "memory_readout_large_k": "memory_readout"}
 
 
 def fail(msg: str):
@@ -415,7 +417,7 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def split_ms(torch, fn, name: str, merged: bool = True, reps: int = 5,
-             tries: int = 3) -> dict:
+             tries: int = 5) -> dict:
     """Mean device time of each of selection ``name``'s block and merge
     kernels (SPLIT_KERNELS) over ``reps`` calls of ``fn``, from a
     ``torch.profiler`` trace (taken again, up to ``tries`` times, when the
@@ -1340,6 +1342,7 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
     and #2 on its picks against the plain readout, both timed beside
     their plain versions, library calls and bounds."""
     from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch.kernels import memory_readout as R
     from eva_vos_tpu_torch.kernels.memory_topk import (RADIX_ROW_SORT,
                                                        RADIX_SORT_CHUNK)
     from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
@@ -1399,7 +1402,8 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
           f"{lib['tf32']:.3f}), bound {bound:.4f} ms ({by})", flush=True)
 
     ref = K.topk_readout_plain(mv, vals, idx)
-    out = K.topk_readout(mv, vals, idx)
+    counts = torch.zeros(2, dtype=torch.int32, device=mv.device)
+    out = K.topk_readout(mv, vals, idx, counts=counts)
     if fp32:
         torch.testing.assert_close(out, ref, rtol=0, atol=FP32_READOUT_ATOL)
     else:
@@ -1407,13 +1411,26 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
                                    rtol=READOUT_RTOL, atol=READOUT_ATOL)
     if not torch.equal(K.topk_readout(mv, vals, idx), out):
         fail(f"{label}: two runs of the readout differ")
+    # the rows staged and the dense stages against the plan's plain
+    # statement, and each branch's tiles
+    queries = R.large_k_geometry(n, 1, mv.shape[2], mv.element_size(),
+                                 R._sm_count(mv.device))[0]
+    _, staged, dense = R.readout_large_k_plain(mv, vals, idx, queries)
+    if counts.tolist() != [staged, dense]:
+        fail(f"{label}: the readout counted {counts.tolist()} (rows staged, "
+             f"dense stages), its plan {[staged, dense]}")
+    tiles = R.large_k_tiles(vals, idx, queries,
+                            mv.shape[2] * mv.element_size(), not fp32)
+    modes = {m: sum(t[0] == m for t in tiles)
+             for m in ("dense", "sparse", "direct")}
+    picks = sum(t[1] for t in tiles if t[0] != "direct")
     w = softmax_weights(vals.T).to(mv.dtype).contiguous()
     ids = idx.T.long().contiguous()
     (rbound, rby), unique = readout_bound(idx, 1, vals, mv.element_size())
-    ro = dict(kernel="memory_readout_sliced", case=label, n=n, top_k=k,
+    ro = dict(kernel="memory_readout_large_k", case=label, n=n, top_k=k,
               max_abs_err=(out.float() - ref.float()).abs().max().item(),
               ms=named_ms(torch, lambda: K.topk_readout(mv, vals, idx),
-                          {SLICED_KERNEL: 1})[SLICED_KERNEL],
+                          {LARGE_K_READOUT: 1})[LARGE_K_READOUT],
               call_ms=cuda_ms(torch, lambda: K.topk_readout(mv, vals, idx),
                               10),
               plain_ms=cuda_ms(torch, lambda: K.topk_readout_plain(
@@ -1421,13 +1438,17 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
               library_ms=device_ms(torch, lambda: torch.nn.functional
                                    .embedding_bag(ids, mv[0], mode="sum",
                                                   per_sample_weights=w)),
-              bound_ms=rbound, bound_by=rby, unique_rows=unique)
+              bound_ms=rbound, bound_by=rby, unique_rows=unique,
+              queries=queries, tiles=modes, staged_rows=staged,
+              staged_picks=picks, dense_stages=dense)
     rows["readout"].append(ro)
+    share = f"{picks / staged:.2f}" if staged else "-"
     print(f"[large-k] #2 {label}: max|d|={ro['max_abs_err']:.3g}; device "
           f"{ro['ms']:.4f} ms, {ro['call_ms']:.3f} ms a call, plain "
           f"{ro['plain_ms']:.3f} ms, embedding_bag {ro['library_ms']:.3f} "
-          f"ms, bound {rbound:.4f} ms ({rby}), unique rows {unique}",
-          flush=True)
+          f"ms, bound {rbound:.4f} ms ({rby}), unique rows {unique}; "
+          f"{queries}-query tiles {modes}, rows staged {staged} (picks per "
+          f"staged row {share}), dense stages {dense}", flush=True)
 
 
 def large_k_kernels(torch):
@@ -1670,7 +1691,7 @@ def large_k_phase(torch, results, card, base, feats, pad, images, masks):
     runs = LARGE_K_ITERS + 1
     return {"memory_topk_radix": runs * e["launches0"]["memory_topk"]
             + e["launches30"]["memory_topk"],
-            "memory_readout_sliced": runs * e["launches0"]["memory_readout"]
+            "memory_readout_large_k": runs * e["launches0"]["memory_readout"]
             + e["launches30"]["memory_readout"]}
 
 

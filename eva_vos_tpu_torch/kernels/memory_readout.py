@@ -13,9 +13,13 @@ The stage copies each distinct selected row once per tile of queries, in
 ascending id order, chunk by chunk of the bank: :func:`readout_stage_plain`
 states that plan in plain PyTorch (with :func:`readout_picks`,
 :func:`readout_chunks` and :func:`readout_staged_rows`), and
-:func:`readout_geometry` the tiles and CV slices it is launched with.  The
-JAX wrapper's padding and VMEM geometry search have no counterpart: the
-CUDA kernels take any N and M.
+:func:`readout_geometry` the tiles and CV slices it is launched with.
+Above 256 slots :func:`topk_readout` runs ``csrc/memory_readout.cu``'s
+large-k kernel, which stages each distinct row once per tile too and sums
+each tile densely on the tensor cores, sparsely, or as a direct gather:
+:func:`readout_large_k_plain` states its plan (with :func:`large_k_tiles`
+and :func:`large_k_geometry`).  The JAX wrapper's padding and VMEM geometry
+search have no counterpart: the CUDA kernels take any N and M.
 """
 
 from __future__ import annotations
@@ -132,10 +136,102 @@ def readout_stage_plain(mv, vals, idx, queries: int = 64,
     return out.to(mv.dtype), staged, walked
 
 
+LARGE_K_ROWS = 32          # memory_readout.cu's kS: rows a stage
+LARGE_K_WINDOW = 2 ** 17   # its kWinIds: the ids [0, 131,072) a tile stages
+LARGE_K_DENSE = (1, 8)     # its kDenseNum, kDenseDen: a bf16 tile is summed
+#                            dense when picks * 8 >= queries * rows
+LARGE_K_SHARE = 4          # its kShare: staged when picks >= 4 * rows,
+LARGE_K_SHARE_FAR = 2      # its kShareFar: or 2 * rows when the tile's ids
+LARGE_K_NEAR = 32 << 20    # span more than its kNear bytes of rows
+LARGE_K_MAX_ROWS = 65536   # its kS * kMaxStages: the most rows it stages
+
+
+def large_k_geometry(n: int, n_obj: int, cv: int, itemsize: int,
+                     sms: int = 132) -> tuple:
+    """(queries a tile, CV slices) of the large-k readout: 64-query tiles
+    when the tiles of all objects fill half the ``sms``, else 32; the CV
+    slices as :func:`readout_geometry` cuts them.  N = 8,100, K = 1,
+    CV = 512 bf16 gives (64, 1): 127 blocks."""
+    return readout_geometry(n, n_obj, cv, itemsize, 1, sms)
+
+
+def large_k_tiles(vals, idx, queries: int, row_bytes: int,
+                  bf16: bool) -> list:
+    """Each tile's branch of the large-k readout of value rows of
+    ``row_bytes`` (CV x itemsize), [(mode, picks, rows)]: its live picks
+    (weight > 0) P, its distinct live ids R, and 'dense' (bf16 values)
+    when P * 8 >= Qv * R (Qv: its queries), 'sparse' when P >= 4 R, or
+    P >= 2 R when its live ids span more than LARGE_K_NEAR bytes of rows,
+    else 'direct', also when an id lies past LARGE_K_WINDOW or
+    R > LARGE_K_MAX_ROWS."""
+    live = torch.exp(vals - vals[:1]) > 0
+    num, den = LARGE_K_DENSE
+    out = []
+    for q0 in range(0, vals.shape[1], queries):
+        ids = idx[:, q0:q0 + queries][live[:, q0:q0 + queries]].long()
+        qv = min(queries, vals.shape[1] - q0)
+        picks, rows = ids.numel(), ids.unique().numel()
+        mode = "direct"
+        if 0 < rows <= LARGE_K_MAX_ROWS and not bool(
+                (ids >= LARGE_K_WINDOW).any()):
+            span = (int(ids.max()) - int(ids.min()) + 1) * row_bytes
+            share = (LARGE_K_SHARE_FAR if span > LARGE_K_NEAR
+                     else LARGE_K_SHARE)
+            if bf16 and picks * den >= num * qv * rows:
+                mode = "dense"
+            elif picks >= share * rows:
+                mode = "sparse"
+        out.append((mode, picks, rows))
+    return out
+
+
+def readout_large_k_plain(mv, vals, idx, queries: int = 64):
+    """Plain statement of the large-k readout (``csrc/memory_readout.cu``,
+    ``readout_large_k_kernel``) -> (out [K, N, CV] in mv.dtype, rows
+    staged, stages summed dense).
+
+    Per tile of ``queries`` queries (and object), in the branch that
+    :func:`large_k_tiles` gives it: 'dense' and 'sparse' stage its distinct
+    live ids once each (LARGE_K_ROWS rows a stage) and sum W [Qv x rows]
+    (each pick's weight at its query and row) times the staged rows;
+    'dense' splits W into two bf16 terms, as the tensor cores take it.
+    'direct' sums each query's picks from the bank.  Every query's sum is
+    divided by its sum of weights."""
+    n_obj, m, cv = mv.shape
+    top_k, n = vals.shape
+    w = torch.exp(vals - vals[:1])
+    z = w.sum(0)
+    tiles = large_k_tiles(vals, idx, queries, cv * mv.element_size(),
+                          mv.dtype == torch.bfloat16)
+    out = torch.empty((n_obj, n, cv), dtype=torch.float32, device=mv.device)
+    staged = dense = 0
+    for (mode, _, n_rows), q0 in zip(tiles, range(0, n, queries)):
+        tw, ti = w[:, q0:q0 + queries], idx[:, q0:q0 + queries].long()
+        if mode == "direct":
+            acc = torch.einsum("tq,otqc->oqc", tw, mv[:, ti].float())
+        else:
+            live = tw > 0
+            rows = ti[live].unique()
+            cols = torch.arange(tw.shape[1], device=mv.device).expand_as(ti)
+            wt = torch.zeros((tw.shape[1], rows.numel()), device=mv.device)
+            wt.index_put_((cols[live], torch.searchsorted(rows, ti[live])),
+                          tw[live], accumulate=True)
+            v = mv[:, rows].float()
+            if mode == "dense":
+                hi = wt.to(torch.bfloat16).float()
+                acc = hi @ v + (wt - hi).to(torch.bfloat16).float() @ v
+                dense += n_obj * -(-n_rows // LARGE_K_ROWS)
+            else:
+                acc = wt @ v
+            staged += n_obj * n_rows
+        out[:, q0:q0 + queries] = acc / z[q0:q0 + queries][None, :, None]
+    return out.to(mv.dtype), staged, dense
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     return _bind("memory_readout", "memory_readout_launch",
-                 [_P] * 4 + [_I] * 6 + [_P])
+                 [_P] * 4 + [_I] * 8 + [_P] * 3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,21 +260,38 @@ def _check_readout(mv, vals, idx, most: int | None = None):
                          f"readout takes at most {most}")
 
 
-def topk_readout(mv: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor):
+def topk_readout(mv: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                 counts: torch.Tensor | None = None):
     """Readout, one value row per (query, slot); CPU tensors take the plain
     version (topk_readout_plain), CUDA tensors the kernel (which raises on
-    any launch error).  Every id must be < M; any top_k >= 1 (above 256
-    the kernel stages the slots in slices of 256)."""
+    any launch error).  Every id must be < M; any top_k >= 1.  Up to 256
+    slots a weighted gather; above, the large-k kernel
+    (:func:`readout_large_k_plain` states it), with scratch of 8 B a pick
+    of each of its blocks.  ``counts``, a CUDA int32 tensor of two
+    elements, gains the large-k kernel's rows staged and stages summed
+    dense (nothing up to 256 slots)."""
     if mv.device.type == "cpu":
         return topk_readout_plain(mv, vals, idx)
     _check_readout(mv, vals, idx)
+    if counts is not None and (counts.device != mv.device or counts.dtype
+                               != torch.int32 or counts.numel() != 2):
+        raise ValueError("counts must be two int32 on mv's device")
     n_obj, m, cv = mv.shape
     top_k, n = vals.shape
     out = torch.empty((n_obj, n, cv), dtype=mv.dtype, device=mv.device)
+    queries = slices = 0
+    scratch = None
+    if top_k > PRUNED_MAX_K:
+        queries, slices = large_k_geometry(n, n_obj, cv, mv.element_size(),
+                                           _sm_count(mv.device))
+        blocks = -(-n // queries) * n_obj * slices
+        scratch = torch.empty(2 * blocks * queries * top_k, dtype=torch.int32,
+                              device=mv.device)
     lib = _lib()
     status = lib.memory_readout_launch(
         mv.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        n_obj, n, m, cv, top_k, _DTYPES[mv.dtype], _stream(mv))
+        n_obj, n, m, cv, top_k, queries, slices, _DTYPES[mv.dtype],
+        _stream(mv), _ptr(scratch), _ptr(counts))
     build.check("memory_readout", lib, status)
     topk_readout.launches += 1
     return out

@@ -2,7 +2,7 @@
 checkout's ``chip_smoke.py`` protocol, on one NVIDIA GPU.
 
     python3 scripts/torch_port_readout_compare.py --root DIR --tag _parent
-    python3 scripts/torch_port_readout_compare.py --engine
+    python3 scripts/torch_port_readout_compare.py --engine [--top-k 512]
 
 Runs ``chip_smoke.readout_cases`` (both readout kernels, the plain version,
 ``F.embedding_bag`` and the bound on the default selection of every case
@@ -15,8 +15,11 @@ compare them.  With ``--engine`` it also runs one frame-0 interact of the
 engine (as ``chip_smoke.py`` builds it) under the default and the chunked
 reads, and counts over the selections that reach the readout the picks and
 the distinct ids per tile of 64 and of 32 queries: the rows a readout that
-stages each distinct row once per tile copies.  Results also go to
-``chiprun_out/readout_compare<--tag>.json``.
+stages each distinct row once per tile copies.  ``--top-k`` sets the
+engine's top_k for that count (default ``chip_smoke.TOP_K``); above 256
+only the default read runs (the chunked read takes at most 256), and the
+large-k readout's branch of each 64-query tile is counted too.  Results
+also go to ``chiprun_out/readout_compare<--tag>.json``.
 """
 
 from __future__ import annotations
@@ -30,13 +33,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def engine_rows(torch, smoke) -> dict:
+def engine_rows(torch, smoke, top_k: int) -> dict:
     """Picks and distinct ids per 64- and 32-query tile over the readouts of
-    one frame-0 interact, for the default and the chunked reads."""
+    one frame-0 interact at ``top_k``, for the default and (up to 256) the
+    chunked reads; above 256 also the large-k readout's tiles by branch."""
     from eva_vos_tpu_torch.data import synthetic_video
     from eva_vos_tpu_torch.engine import (EngineConfig, InferenceEngine,
                                           pad_mask, prepare_video)
     from eva_vos_tpu_torch.kernels import KernelConfig
+    from eva_vos_tpu_torch.kernels import memory_readout as R
     from eva_vos_tpu_torch.kernels import memory_topk as M
     from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
 
@@ -50,9 +55,9 @@ def engine_rows(torch, smoke) -> dict:
     padded, pad = prepare_video(images, dtype=dtype, device=smoke.DEVICE)
     m0 = pad_mask(masks[:1, 0], pad, device=smoke.DEVICE)
     out = {}
-    for read, sel in (("fused", "tournament"),
-                      ("fused_chunked_chunked", "chunked")):
-        cfg = EngineConfig(mem_freq=5, top_k=smoke.TOP_K, max_interactions=60,
+    reads = (("fused", "tournament"), ("fused_chunked_chunked", "chunked"))
+    for read, sel in reads[:1] if top_k > M.PRUNED_MAX_K else reads:
+        cfg = EngineConfig(mem_freq=5, top_k=top_k, max_interactions=60,
                            feature_chunk=2, readout_strategy="fused",
                            kernels=KernelConfig(
                                sel_method=sel,
@@ -61,16 +66,21 @@ def engine_rows(torch, smoke) -> dict:
         engine = InferenceEngine(stcn, fusion, cfg, device=smoke.DEVICE)
         feats = engine.precompute_features(padded)
         state0 = engine.init_state(feats, 1)
-        counts = dict(calls=0, picks=0, rows64=0, rows32=0)
+        counts = dict(calls=0, picks=0, rows64=0, rows32=0, dense=0,
+                      sparse=0, direct=0)
         select = M.SELECTORS[sel]
 
-        def counted(qk, mk, valid, top_k, **kw):
-            vals, idx = select(qk, mk, valid, top_k, **kw)
+        def counted(qk, mk, valid, k, **kw):
+            vals, idx = select(qk, mk, valid, k, **kw)
             counts["calls"] += 1
             for q in (64, 32):
                 rows, picks = smoke.tile_rows(torch, vals, idx, q)
                 counts[f"rows{q}"] += rows
             counts["picks"] += picks
+            if k > M.PRUNED_MAX_K:
+                for mode, _, _ in R.large_k_tiles(vals, idx, 64,
+                                                  2 * smoke.CV, True):
+                    counts[mode] += 1
             return vals, idx
 
         M.SELECTORS[sel] = counted
@@ -80,11 +90,15 @@ def engine_rows(torch, smoke) -> dict:
         finally:
             M.SELECTORS[sel] = select
         out[read] = counts
-        print(f"[engine {read}] readouts at frame 0: {counts['calls']} calls, "
-              f"{counts['picks']} picks, distinct ids per tile: "
-              f"{counts['rows64']} (64 queries; "
+        print(f"[engine {read}] readouts at frame 0, top_k {top_k}: "
+              f"{counts['calls']} calls, {counts['picks']} picks, distinct "
+              f"ids per tile: {counts['rows64']} (64 queries; "
               f"{counts['picks'] / counts['rows64']:.2f} picks each), "
-              f"{counts['rows32']} (32 queries)", flush=True)
+              f"{counts['rows32']} (32 queries; "
+              f"{counts['picks'] / counts['rows32']:.2f} picks each)"
+              + (f"; large-k tiles dense {counts['dense']}, sparse "
+                 f"{counts['sparse']}, direct {counts['direct']}"
+                 if top_k > M.PRUNED_MAX_K else ""), flush=True)
     return out
 
 
@@ -95,6 +109,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="suffix of the JSON file's name")
     ap.add_argument("--engine", action="store_true",
                     help="also count the engine's readout rows at frame 0")
+    ap.add_argument("--top-k", type=int, default=None,
+                    help="the engine's top_k for --engine (default: "
+                         "chip_smoke.TOP_K)")
     args = ap.parse_args(argv)
     import torch
 
@@ -125,7 +142,8 @@ def main(argv=None) -> int:
     results = {"card": card, "root": str(root), "stage": stage,
                "readout": smoke.readout_cases(torch, mv2, sels, stage)}
     if args.engine:
-        results["engine"] = engine_rows(torch, smoke)
+        results["engine"] = engine_rows(torch, smoke,
+                                        args.top_k or smoke.TOP_K)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"readout_compare{args.tag}.json").write_text(

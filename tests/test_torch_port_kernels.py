@@ -30,7 +30,9 @@ from eva_vos_tpu_torch.kernels import (KernelConfig, build, fused_readout,
                                        topk_select_chunked, topk_select_grid,
                                        topk_select_iter, topk_select_plain,
                                        topk_select_resident, topk_select_sort)
-from eva_vos_tpu_torch.kernels.memory_readout import (readout_geometry,
+from eva_vos_tpu_torch.kernels.memory_readout import (large_k_geometry,
+                                                      readout_geometry,
+                                                      readout_large_k_plain,
                                                       readout_staged_rows)
 from eva_vos_tpu_torch.kernels.memory_topk import (_SELECT_BLOCK,
                                                    RADIX_ROUND,
@@ -830,7 +832,7 @@ def test_engine_on_card_matches_plain_read(cuda, block_frames):
 
 
 # The default read above top_k = 256: #1's radix select (with merge passes
-# above RADIX_SORT_CHUNK keys a query) and #2's sliced staging.
+# above RADIX_SORT_CHUNK keys a query) and #2's large-k readout.
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -920,15 +922,17 @@ def test_topk_select_large_k_empty_bank(cuda, top_k):
     assert torch.all(vals == -1e30) and torch.all(idx == 0)
 
 
-# (kind, N, M, CV, top_k, valid, K, dtype) above 256: staged in slices of
-# 256 slots (two, and eight with a ragged last one), valid < top_k, K = 2,
-# CV 64, 512 and 1,024
+# (kind, N, M, CV, top_k, valid, K, dtype) above 256: valid < top_k, K = 2,
+# CV 64, 512 and 1,024, an odd top_k; high sharing (M ~ 1,600 at top_k 512:
+# dense tiles in bf16) and low sharing (M = 100,000: direct tiles)
 LARGE_K_READOUT_CASES = [
     ("random", 300, 5000, 512, 512, 4000, 1, torch.bfloat16),
     ("random", 300, 5000, 512, 512, 4000, 2, torch.float32),
     ("random", 200, 5000, 1024, 2000, 4000, 1, torch.bfloat16),
     ("random", 130, 3000, 64, 2048, 1500, 2, torch.float32),
     ("ties", 100, 3000, 64, 257, 3000, 1, torch.bfloat16),
+    ("random", 500, 1600, 512, 512, 1600, 1, torch.bfloat16),
+    ("random", 300, 100000, 512, 512, 100000, 1, torch.bfloat16),
 ]
 
 
@@ -936,17 +940,29 @@ LARGE_K_READOUT_CASES = [
 @pytest.mark.parametrize("case", LARGE_K_READOUT_CASES, ids=str)
 def test_topk_readout_large_k(cuda, case):
     """#2 above 256 against the plain version; two runs equal bit for bit;
-    the chunked readout keeps its cap and names it."""
+    its rows staged and dense stages as its plan counts them (dense stages
+    where M ~ 1,600, nothing staged where M = 100,000); the chunked readout
+    keeps its cap and names it."""
     kind, n, m, cv, top_k, valid, k_obj, dtype = case
     g = torch.Generator(device=cuda).manual_seed(n + cv)
     mv = torch.randn((k_obj, m, cv), generator=g, device=cuda).to(dtype)
     vals, idx = _readout_selection(kind, n, m, top_k, valid, cuda)
+    counts = torch.zeros(2, dtype=torch.int32, device=cuda)
     before = topk_readout.launches
-    out = topk_readout(mv, vals, idx)
+    out = topk_readout(mv, vals, idx, counts=counts)
     torch.cuda.synchronize()
     assert topk_readout.launches == before + 1
     _assert_readout_close(out, topk_readout_plain(mv, vals, idx))
     assert torch.equal(topk_readout(mv, vals, idx), out)
+    queries = large_k_geometry(n, k_obj, cv, mv.element_size(),
+                               torch.cuda.get_device_properties(
+                                   cuda).multi_processor_count)[0]
+    _, staged, dense = readout_large_k_plain(mv, vals, idx, queries)
+    assert counts.tolist() == [staged, dense]
+    if m == 1600 and dtype == torch.bfloat16:
+        assert dense > 0
+    if m == 100000:
+        assert staged == 0
     with pytest.raises(ValueError, match="at most 256"):
         topk_readout_chunked(mv, vals, idx)
 
