@@ -6,10 +6,11 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``eva_vos_tpu_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all at once); print each kernel's registers and
+   ``nvcc`` per library, all at once: each selection's source once for
+   each key width, ``build.LIBRARIES``); print each kernel's registers and
    spills, and the HMMA (tensor-core) instructions in the SASS of the
-   libraries of the selections that score bf16 keys on the tensor cores
-   (``cuobjdump``): the default and newest-first (``memory_topk``), the
+   libraries (every width) of the selections that score bf16 keys on the
+   tensor cores (``cuobjdump``): the default and newest-first (``memory_topk``), the
    resident (``memory_topk_resident``), the 'select' read's
    (``memory_topk_grid``), the iterative (``memory_topk_iter``) and the
    sort selection's;
@@ -86,6 +87,22 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    exactly as often as at top_k 50 and no other kernel, LARGE_K_ITERS
    interleaved frame-0 interacts a read; the eval CLI with ``--top-k 512``
    (oracle_mask, 3 rounds) against a direct call (``[large-k ...]`` lines);
+6d. keys of other widths than 64: each selection kernel (#1, #4-#8) at
+   CK in KEY_WIDTHS_CK (bf16, top_k 50; 24 is taken zero-padded to 32 and
+   counted in the wrapper's ``pads``) on a clustered bank at fill
+   WIDTH_FILL, N = 8100, against the plain selection
+   (``check_selection``'s rule), #1 also at top_k 512 (its radix select),
+   in fp32 at WIDTH_FP32 and at fill 72 at WIDTH_FULL, each with its
+   device ms (CUDA events around back-to-back calls, the pad included:
+   ``stream_ms``; and by kernel from a trace, ``named_ms``), bound and
+   addmm + torch.topk time (``[widths]`` lines); a
+   CUDA call at CK 300 must raise naming the cap; phase 6's engine with
+   ``PropagationNetwork(keydim=...)`` of WIDTH_KEYDIMS (resnet50 /
+   resnet18, bf16, seeded): a frame-0 interact on the default read against
+   the plain read (PROB_ATOL / PROB_FRAC), #1's launches and pads, and
+   WIDTH_ITERS untraced interacts; ``entry(keydim=WIDTH_ENTRY)`` against
+   its 'gather' step, and a one-process sharded read at that width against
+   the fused read;
 7. ``resize_bilinear`` on a bf16 batch of frames that shrinks: it must
    take the antialiased filter (in fp32, cast back), and whether torch's
    own antialiased kernel takes bf16 on the card is printed;
@@ -192,7 +209,8 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    result, and each turn's median ms a call;
 13. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
-   times and bound, and the large-k paths of #1 and #2 (phase 6c).
+   times and bound, and the key widths it ran at (phase 6d), and the
+   large-k paths of #1 and #2 (phase 6c).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 full results also go to ``chiprun_out/chip_smoke.json``.  Without a CUDA
@@ -300,6 +318,19 @@ LABEL_CALLS = 200
 # eval CLI at --top-k LARGE_K_ENGINE, oracle_mask, LARGE_K_ROUNDS rounds
 LARGE_K = (512, 2048)
 LARGE_K_FP32 = (12, 512)
+# the key-width phase (6d): each selection kernel (width_selectors()) at
+# each of KEY_WIDTHS_CK on phase 6c's clustered bank at fill WIDTH_FILL,
+# N = N_QUERIES, bf16, top_k TOP_K; #1 also at top_k LARGE_K[0], in fp32 at
+# WIDTH_FP32 and at fill max(FILLS) at WIDTH_FULL; phase 6's engine with
+# keys WIDTH_KEYDIMS wide (WIDTH_ITERS untraced interacts), entry() and a
+# one-process sharded read at WIDTH_ENTRY
+KEY_WIDTHS_CK = (16, 24, 32, 64, 128, 256)
+WIDTH_FILL = 12
+WIDTH_FP32 = (32, 128)
+WIDTH_FULL = (128, 256)
+WIDTH_KEYDIMS = (128, 24)
+WIDTH_ENTRY = 128
+WIDTH_ITERS = 3
 LARGE_K_MERGE = (256, 40000, 20000)
 LARGE_K_ENGINE = 512
 LARGE_K_ITERS = 5
@@ -309,6 +340,9 @@ RADIX_KERNELS = ("topk_key_norms_kernel", "topk_radix_kernel",
                  "topk_cand_select_kernel", "topk_sort_rows_kernel",
                  "topk_sort_chunks_kernel", "topk_rank_merge_kernel",
                  "topk_keys_t_kernel")
+# the wrappers' pad of keys to a built width (memory_topk.pad_keys: a fill
+# and a copy for qk and for the valid keys), as a trace names its kernels
+PAD_KERNELS = {"FillFunctor": 2, "copy_kernel": 2}
 # #1's kernels at top_k <= 256
 PRUNED_KERNELS = ("topk_prune_block_kernel", "topk_merge_t_kernel")
 LARGE_K_READOUT = "readout_large_k_kernel"
@@ -416,6 +450,28 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def stream_ms(torch, fn, reps: int = 10, rounds: int = 3) -> float:
+    """Device ms a call of ``fn``: the time between two CUDA events around
+    ``reps`` back-to-back calls, over ``reps`` (median of ``rounds``).  It
+    holds every kernel the calls queue and the gaps between them, which
+    stay a few microseconds while the host queues a call faster than the
+    card runs one (calls of 0.3 ms and more); no trace can drop a kernel
+    from it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return sorted(times)[len(times) // 2]
+
+
 def split_ms(torch, fn, name: str, merged: bool = True, reps: int = 5,
              tries: int = 5) -> dict:
     """Mean device time of each of selection ``name``'s block and merge
@@ -487,16 +543,17 @@ def bound_ms(n_bytes: float, flops: float,
 
 
 def make_bank(torch, gen, qk, fill: int, clustered: bool):
-    """Keys [72 slots x 1620, CK] bf16 with ``fill`` slots valid.  Clustered:
-    every token is a query key plus small noise, so each query has
-    near-tied neighbours (as a static background gives real banks)."""
-    m = max(FILLS) * HW_TOKENS
+    """Keys [72 slots x 1620, CK] bf16 (CK as wide as qk) with ``fill``
+    slots valid.  Clustered: every token is a query key plus small noise,
+    so each query has near-tied neighbours (as a static background gives
+    real banks)."""
+    m, ck = max(FILLS) * HW_TOKENS, qk.shape[1]
     if clustered:
         src = torch.arange(m, device=qk.device) % qk.shape[0]
-        noise = torch.randn((m, CK), generator=gen, device=qk.device)
+        noise = torch.randn((m, ck), generator=gen, device=qk.device)
         mk = qk.float()[src] + 0.05 * noise
     else:
-        mk = torch.randn((m, CK), generator=gen, device=qk.device)
+        mk = torch.randn((m, ck), generator=gen, device=qk.device)
     return mk.to(torch.bfloat16), fill * HW_TOKENS
 
 
@@ -514,25 +571,29 @@ def check_selection(torch, vals, idx, ref_vals, ref_idx, name, k=None):
     return err, int((idx != ref_idx[:k]).sum())
 
 
-def selection_bound(n: int, valid: int, k=None, fp32: bool = False):
-    """Bound of an exact top-k selection: read qk and the valid keys once,
-    write k (score, id) pairs per query; 2 * CK flops per (query, token),
-    on the tensor cores for bf16 keys and on the FP32 units for fp32."""
+def selection_bound(n: int, valid: int, k=None, fp32: bool = False,
+                    ck: int = CK):
+    """Bound of an exact top-k selection: read qk and the valid keys (``ck``
+    wide) once, write k (score, id) pairs per query; 2 * ck flops per
+    (query, token), on the tensor cores for bf16 keys and on the FP32 units
+    for fp32."""
     k = k or TOP_K
-    n_bytes = (4 if fp32 else 2) * CK * (n + valid) + 8 * k * n
-    return bound_ms(n_bytes, 2.0 * n * valid * CK,
+    n_bytes = (4 if fp32 else 2) * ck * (n + valid) + 8 * k * n
+    return bound_ms(n_bytes, 2.0 * n * valid * ck,
                     PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
 
 
 def library_select(torch, mk, q, k=None):
     """One library computation of the selection: the scores as one fp32
     GEMM whose bias is -|k|^2 / sqrt(CK) (2 / sqrt(64) and 1 / sqrt(64) are
-    powers of two, so the result is the plain version's), then
-    ``torch.topk``.  The bias stays 1-D, so that cuBLASLt adds it in the
-    GEMM's epilogue instead of a [N, M] copy of it being read."""
+    powers of two, so the result is the plain version's; at other widths
+    it may round apart), then ``torch.topk``.  The bias stays 1-D, so that
+    cuBLASLt adds it in the GEMM's epilogue instead of a [N, M] copy of it
+    being read."""
+    ck = mk.shape[1]
     mk32 = mk.float()
-    bias = (mk32 * mk32).sum(-1).mul_(-1.0 / math.sqrt(CK))
-    scores = torch.addmm(bias, q.float(), mk32.T, alpha=2.0 / math.sqrt(CK))
+    bias = (mk32 * mk32).sum(-1).mul_(-1.0 / math.sqrt(ck))
+    scores = torch.addmm(bias, q.float(), mk32.T, alpha=2.0 / math.sqrt(ck))
     return torch.topk(scores, k or TOP_K, dim=1)
 
 
@@ -1336,6 +1397,22 @@ def named_ms(torch, fn, per_call: dict, reps: int = 5,
     fail(f"the profiler's traces of {reps} calls hold no {missing}")
 
 
+def radix_launches(kk: int, valid: int) -> dict:
+    """#1's radix path's kernels (RADIX_KERNELS) -> launches a call, for
+    kk = min(top_k, valid) of ``valid`` tokens: the norms and the radix
+    select, the candidates' top below the valid tokens, the lists' sort (a
+    warp a query up to RADIX_ROW_SORT keys, else chunks and merge passes
+    above RADIX_SORT_CHUNK), the transposed write."""
+    from eva_vos_tpu_torch.kernels.memory_topk import (RADIX_ROW_SORT,
+                                                       RADIX_SORT_CHUNK)
+
+    merges = max(0, math.ceil(math.log2(-(-kk // RADIX_SORT_CHUNK))))
+    rows_sort = 0 < kk <= RADIX_ROW_SORT
+    return dict(zip(RADIX_KERNELS, (
+        int(kk > 0), int(kk > 0), int(0 < kk < valid), int(rows_sort),
+        int(kk > 0 and not rows_sort), merges, 1)))
+
+
 def large_k_case(torch, q, mk, valid, mv, k, label, rows):
     """#1 at top_k ``k`` (> 256: the radix select) against its plain
     version with ``check_selection``'s rule, its dead slots (-1e30, 0),
@@ -1343,8 +1420,6 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
     their plain versions, library calls and bounds."""
     from eva_vos_tpu_torch import kernels as K
     from eva_vos_tpu_torch.kernels import memory_readout as R
-    from eva_vos_tpu_torch.kernels.memory_topk import (RADIX_ROW_SORT,
-                                                       RADIX_SORT_CHUNK)
     from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
 
     fp32 = q.dtype == torch.float32
@@ -1367,11 +1442,7 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
         fail(f"{label}: the {dead} slots past the live tokens are not "
              f"(-1e30, 0)")
     call = lambda: K.topk_select(q, mk, valid, k)  # noqa: E731
-    merges = max(0, math.ceil(math.log2(-(-kk // RADIX_SORT_CHUNK))))
-    rows_sort = 0 < kk <= RADIX_ROW_SORT  # a warp a query
-    split = named_ms(torch, call, dict(zip(RADIX_KERNELS, (
-        int(kk > 0), int(kk > 0), int(0 < kk < valid), int(rows_sort),
-        int(kk > 0 and not rows_sort), merges, 1))))
+    split = named_ms(torch, call, radix_launches(kk, valid))
     sort_ms = (split["topk_sort_rows_kernel"]
                + split["topk_sort_chunks_kernel"])
     # the library call selects the live kk (torch.topk takes no k above
@@ -1693,6 +1764,289 @@ def large_k_phase(torch, results, card, base, feats, pad, images, masks):
             + e["launches30"]["memory_topk"],
             "memory_readout_large_k": runs * e["launches0"]["memory_readout"]
             + e["launches30"]["memory_readout"]}
+
+
+def width_selectors():
+    """Phase 6d's kernels: name -> (the selection as (vals [k, N] raw
+    scores, idx [k, N]), the wrapper that counts its launches and pads)."""
+    from eva_vos_tpu_torch import kernels as K
+
+    def rows(fn):
+        def transposed(q, mk, valid, k):
+            vals, idx = fn(q, mk, valid, k, return_raw=True)
+            return vals.T, idx.T
+        return transposed
+
+    return {"memory_topk": (K.topk_select, K.topk_select),
+            "memory_topk_chunked": (K.topk_select_chunked,
+                                    K.topk_select_chunked),
+            "memory_topk_resident": (K.topk_select_resident,
+                                     K.topk_select_resident),
+            "memory_topk_grid": (rows(K.topk_select_grid),
+                                 K.topk_select_grid),
+            "memory_topk_iter": (rows(K.topk_select_iter),
+                                 K.topk_select_iter),
+            "memory_topk_sort": (rows(K.topk_select_sort),
+                                 K.topk_select_sort)}
+
+
+def width_launches(name: str, n: int, valid: int, k: int, padded: bool,
+                   sms: int) -> dict:
+    """The kernels one call of selection ``name`` of width_selectors()
+    launches, as a trace names them -> launches a call, from the wrappers'
+    plans: the radix path's above PRUNED_MAX_K (radix_launches), else the
+    block (or walk) kernel and, where the bank takes several blocks (or
+    segments), the merge (SPLIT_KERNELS); with the keys ``padded``, the
+    pad's fill and copy of qk and of the valid keys (PAD_KERNELS)."""
+    from eva_vos_tpu_torch.kernels.memory_topk import (
+        _SELECT_BLOCK, PRUNED_MAX_K, iter_segments, resident_segments)
+
+    if k > PRUNED_MAX_K:
+        out = radix_launches(min(k, valid), valid)
+    else:
+        block, merge = SPLIT_KERNELS[name]
+        segments = {"memory_topk_resident": resident_segments,
+                    "memory_topk_iter": iter_segments}.get(name)
+        merged = (segments(n, valid, k, sms) > 1 if segments
+                  else valid > _SELECT_BLOCK)
+        out = {block: 1, merge: int(merged)}
+    if padded:
+        out.update(PAD_KERNELS)
+    return out
+
+
+def width_case(torch, name, q, mk, valid, k, ref, label, rows):
+    """Kernel ``name`` of width_selectors() on one bank at keys as wide as
+    ``q``: launched once, padded once where the width is not one the
+    kernels are built for, checked against the plain selection ``ref``
+    (``check_selection``'s rule), its device ms (``stream_ms``: CUDA
+    events around back-to-back calls, the pad's copies included) and each
+    of its kernels' (``named_ms`` on ``width_launches``, from a trace)
+    beside its bound and the library's addmm + torch.topk at the same
+    width."""
+    from eva_vos_tpu_torch.kernels.memory_topk import key_width
+
+    fn, counted = width_selectors()[name]
+    ck, fp32 = q.shape[1], q.dtype == torch.float32
+    launches, pads = counted.launches, counted.pads
+    vals, idx = fn(q, mk, valid, k)
+    torch.cuda.synchronize()
+    padded = int(key_width(ck)[1] > 0)
+    if (counted.launches - launches, counted.pads - pads) != (1, padded):
+        fail(f"[widths] {label}: {counted.launches - launches} launches and "
+             f"{counted.pads - pads} pads, not 1 and {padded}")
+    err, n_diff = check_selection(torch, vals, idx, ref[0], ref[1], label, k)
+    ms = stream_ms(torch, lambda: fn(q, mk, valid, k))
+    split = named_ms(torch, lambda: fn(q, mk, valid, k), width_launches(
+        name, q.shape[0], valid, k, bool(padded),
+        torch.cuda.get_device_properties(q.device).multi_processor_count))
+    traced = split.pop("all")
+    pad_ms = sum(split[x] for x in PAD_KERNELS) if padded else 0.0
+    bound, by = selection_bound(q.shape[0], valid, k, fp32, ck)
+    lib = library_times(torch, mk[:valid], q, ref[0], k)
+    row = dict(kernel="memory_topk_radix" if k > 256 else name, case=label,
+               ck=ck, n=q.shape[0], valid=valid, top_k=k,
+               dtype="fp32" if fp32 else "bf16", max_abs_err=err,
+               ids_differ=n_diff, pads=counted.pads - pads, ms=ms,
+               traced_ms=traced, pad_ms=pad_ms, split_ms=split,
+               bound_ms=bound, bound_by=by, library_ms=min(lib.values()))
+    rows.append(row)
+    print(f"[widths] {label}: max|dv|={err:.3g} ids_differ={n_diff} pads "
+          f"{row['pads']}; device {ms:.4f} ms (kernels in a trace "
+          f"{traced:.4f}, pad {pad_ms:.4f}), addmm+torch.topk "
+          f"{row['library_ms']:.3f} ms, bound {bound:.4f} ms ({by})",
+          flush=True)
+
+
+def width_kernels(torch):
+    """Each selection kernel at each of KEY_WIDTHS_CK (bf16, top_k TOP_K;
+    #1 also at LARGE_K[0]) on a clustered bank at fill WIDTH_FILL, N =
+    N_QUERIES; #1 in fp32 at WIDTH_FP32 and at fill max(FILLS) at
+    WIDTH_FULL; a CUDA call at 300 must raise naming the cap."""
+    from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch.kernels.memory_topk import MAX_KEY_WIDTH
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for ck in KEY_WIDTHS_CK:
+        qk = torch.randn((N_QUERIES, ck), generator=gen, device=dev).to(
+            torch.bfloat16)
+        mk, valid = make_bank(torch, gen, qk, WIDTH_FILL, clustered=True)
+        ref = K.topk_select_plain(qk, mk, valid, LARGE_K[0] + 1)
+        for name in width_selectors():
+            width_case(torch, name, qk, mk, valid, TOP_K, ref,
+                       f"{name} CK={ck} fill{WIDTH_FILL} top_k={TOP_K} bf16",
+                       rows)
+        width_case(torch, "memory_topk", qk, mk, valid, LARGE_K[0], ref,
+                   f"memory_topk CK={ck} fill{WIDTH_FILL} top_k={LARGE_K[0]}"
+                   f" bf16", rows)
+        if ck in WIDTH_FP32:  # bf16 values: the same plain selection
+            width_case(torch, "memory_topk", qk.float(), mk.float(), valid,
+                       TOP_K, ref, f"memory_topk CK={ck} fill{WIDTH_FILL} "
+                       f"top_k={TOP_K} fp32", rows)
+        if ck in WIDTH_FULL:
+            mk, valid = make_bank(torch, gen, qk, max(FILLS), clustered=True)
+            width_case(torch, "memory_topk", qk, mk, valid, TOP_K,
+                       K.topk_select_plain(qk, mk, valid, TOP_K + 1),
+                       f"memory_topk CK={ck} fill{max(FILLS)} top_k={TOP_K}"
+                       f" bf16", rows)
+        del mk
+    wide = torch.zeros((64, MAX_KEY_WIDTH + 44), device=dev)
+    for name, (fn, counted) in width_selectors().items():
+        launches = counted.launches
+        try:
+            fn(wide, wide, 64, 8)
+        except ValueError as e:
+            if str(MAX_KEY_WIDTH) not in str(e):
+                fail(f"[widths] {name} at CK={wide.shape[1]}: {e}")
+        else:
+            fail(f"[widths] {name} took keys {wide.shape[1]} wide")
+        if counted.launches != launches:
+            fail(f"[widths] {name} launched at CK={wide.shape[1]}")
+    print(f"[widths] every selection at CK={wide.shape[1]} raised naming "
+          f"the cap {MAX_KEY_WIDTH}", flush=True)
+    return rows
+
+
+def width_engine(torch, card, keydim, images, masks):
+    """Phase 6's engine and video with a ``keydim``-wide key projection
+    (resnet50 / resnet18, bf16, weights from torch.manual_seed(0)): one
+    frame-0 interact on the default read (#1 + #2, the keys padded where
+    keydim is not a built width) against the plain read within PROB_ATOL /
+    PROB_FRAC, #1's launches and pads, WIDTH_ITERS untraced interacts."""
+    from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch.engine import (EngineConfig, InferenceEngine,
+                                          pad_mask, prepare_video)
+    from eva_vos_tpu_torch.kernels.memory_topk import KEY_WIDTHS
+    from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork
+
+    dtype = torch.bfloat16
+    torch.manual_seed(0)
+    stcn = PropagationNetwork(keydim=keydim, key_arch=ENGINE["key_arch"],
+                              value_arch="resnet18").to(dtype)
+    fusion = FusionNet().to(dtype)
+    cfg = EngineConfig(mem_freq=5, top_k=TOP_K, max_interactions=60,
+                       feature_chunk=2)
+    fused = InferenceEngine(stcn, fusion, cfg, device=DEVICE)
+    plain = InferenceEngine(stcn, fusion,
+                            cfg._replace(readout_strategy="gather"),
+                            device=DEVICE)
+    if fused.config.readout_strategy != "fused":
+        fail(f"[widths] engine resolved {fused.config.readout_strategy!r}")
+    padded, pad = prepare_video(images, dtype=dtype, device=DEVICE)
+    feats = fused.precompute_features(padded)
+    if feats.k16.shape[-1] != keydim:
+        fail(f"[widths] keys {feats.k16.shape[-1]} wide, not {keydim}")
+    state0 = fused.init_state(feats, 1)
+    m0 = pad_mask(masks[:1, 0], pad, device=DEVICE)
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    K.topk_select.pads = 0
+    out = fused.interact(state0, feats, m0, 0)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    pads = K.topk_select.pads
+    if set(launches) != {"memory_topk", "memory_readout"}:
+        fail(f"[widths] keydim {keydim}: the default read launched "
+             f"{launches}")
+    if pads != (launches["memory_topk"] if keydim not in KEY_WIDTHS
+                else 0):
+        fail(f"[widths] keydim {keydim}: {pads} pads for "
+             f"{launches['memory_topk']} launches")
+    want = plain.interact(state0, feats, m0, 0)
+    if not torch.isfinite(out.prob).all():
+        fail(f"[widths] keydim {keydim}: non-finite probabilities")
+    frac, dmax = prob_off(torch, out.prob, want.prob)
+    if frac > PROB_FRAC:
+        fail(f"[widths] keydim {keydim}: fused vs gather {frac:.2e} of "
+             f"probabilities off by > {PROB_ATOL}")
+    walls = []
+    for _ in range(WIDTH_ITERS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fused.interact(state0, feats, m0, 0)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - start))
+    print(f"[widths] engine keydim {keydim}: frame-0 interact fused vs "
+          f"gather max|dp|={dmax:.3g} share > {PROB_ATOL}: {frac:.2e}; "
+          f"launches {launches}, #1 pads {pads}; untraced interact median "
+          f"{statistics.median(walls):.1f} ms (min {min(walls):.1f}, max "
+          f"{max(walls):.1f}); on {card}", flush=True)
+    return dict(keydim=keydim, share_off=frac, max_abs_dp=dmax,
+                launches=launches, pads=pads, ms=sorted(walls))
+
+
+def width_entry_sharded(torch):
+    """entry() with keys WIDTH_ENTRY wide, fused against its 'gather' step
+    (#1 and #2 once each); a one-process sharded read at that width on a
+    clustered bank against the fused read (#1 as its local selection)."""
+    from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch.entry import entry
+    from eva_vos_tpu_torch.parallel import make_mesh, sharded_memory_readout
+
+    steps = {read: entry(strategy=read, keydim=WIDTH_ENTRY)
+             for read in ("fused", "gather")}
+    counters = launch_counters()
+    probs = {}
+    for read, (step, args) in steps.items():
+        for c in counters.values():
+            c.launches = 0
+        probs[read] = step(*args)
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items() if c.launches}
+        want = {"memory_topk": 1, "memory_readout": 1} if read == "fused" \
+            else {}
+        if counts != want:
+            fail(f"[widths] entry(keydim={WIDTH_ENTRY}) {read} step "
+                 f"launched {counts}")
+    got = probs["fused"]
+    if got.shape != (2, 480, 864) or not torch.isfinite(got).all():
+        fail(f"[widths] entry(keydim={WIDTH_ENTRY}): {tuple(got.shape)}")
+    frac, dmax = prob_off(torch, got, probs["gather"])
+    if frac > PROB_FRAC:
+        fail(f"[widths] entry(keydim={WIDTH_ENTRY}): {frac:.2e} of "
+             f"probabilities off the plain step's by > {PROB_ATOL}")
+    print(f"[widths] entry(keydim={WIDTH_ENTRY}) fused vs gather step: "
+          f"max|dp|={dmax:.3g} share > {PROB_ATOL}: {frac:.2e}", flush=True)
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    qk = torch.randn((N_QUERIES, WIDTH_ENTRY), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mk, valid = make_bank(torch, gen, qk, WIDTH_FILL, clustered=True)
+    mv = torch.randn((1, mk.shape[0], CV), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mesh = make_mesh(device=DEVICE)
+    K.topk_select.launches = 0
+    out = sharded_memory_readout(mk, qk, mv, TOP_K, mesh, valid)
+    torch.cuda.synchronize()
+    if K.topk_select.launches != 1:
+        fail(f"[widths] the sharded read launched #1 "
+             f"{K.topk_select.launches} times")
+    ref = K.fused_readout(mk, qk, mv, TOP_K, valid)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=READOUT_RTOL,
+                               atol=READOUT_ATOL)
+    sharded_err = (out.float() - ref.float()).abs().max().item()
+    print(f"[widths] one-process sharded read at CK={WIDTH_ENTRY} against "
+          f"the fused read: max|d|={sharded_err:.3g}", flush=True)
+    return dict(entry=dict(ck=WIDTH_ENTRY, share_off=frac, max_abs_dp=dmax),
+                sharded=dict(ck=WIDTH_ENTRY, max_abs_err=sharded_err))
+
+
+def width_phase(torch, results, card, images, masks):
+    """Phase 6d: keys of other widths than 64 (kernels, engines, entry
+    point, sharded read)."""
+    phase_start = time.perf_counter()
+    out = dict(cases=width_kernels(torch))
+    out["engines"] = [width_engine(torch, card, keydim, images, masks)
+                      for keydim in WIDTH_KEYDIMS]
+    out.update(width_entry_sharded(torch))
+    out["phase_s"] = time.perf_counter() - phase_start
+    print(f"[widths] the phase took {out['phase_s']:.1f} s on {card}",
+          flush=True)
+    results["widths"] = out
 
 
 def resize_phase(torch, results):
@@ -3490,6 +3844,14 @@ def kernels_line(results, launches):
     read that runs it (on the entry-point phase for the kernels that no
     engine read runs); then the large-k paths of #1 and #2 (phase 6c)."""
 
+    def widths(name):
+        """The key widths the selection ``name`` ran at (phase 6d, and 64
+        in every other phase); None for a readout (it reads no keys)."""
+        if "topk" not in name:
+            return None
+        return sorted({CK} | {r["ck"] for r in results["widths"]["cases"]
+                              if r["kernel"] == name})
+
     def row(name, rows):
         readout = "topk" not in name
         mine = [r for r in rows if readout or r["kernel"] == name]
@@ -3504,7 +3866,7 @@ def kernels_line(results, launches):
                                    for r in mine),
                 "ms": head[f"{key}ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"]}
+                "library_ms": head["library_ms"], "key_widths": widths(name)}
 
     def large_k_row(name):
         """A large-k path's entry: its times at the fullest clustered bank
@@ -3522,7 +3884,7 @@ def kernels_line(results, launches):
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"]}
+                "library_ms": head["library_ms"], "key_widths": widths(name)}
 
     return [row(name, results["selection" if "topk" in name else "readout"])
             for name in REPLACES] + [large_k_row(name) for name in LARGE_K_LINE]
@@ -3552,12 +3914,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = build.build_all()
     print(f"[build] {build_s} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in build.KERNELS:
+    for name in build.LIBRARIES:
         for line in build.ptxas_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
     hmma = {}
-    for name in sorted({SOURCES[k].removesuffix(".cu") for k in SPLIT_KERNELS}):
+    scored = {SOURCES[k].removesuffix(".cu") for k in SPLIT_KERNELS}
+    for name in (x for x in build.LIBRARIES if build.source(x) in scored):
         hmma[name] = hmma_count(build, name)
         print(f"[sass] {name}: " + (
             "cuobjdump not found" if hmma[name] is None else
@@ -3576,6 +3939,7 @@ def main() -> int:
     launches.update(large_k_phase(torch, results, card, engine, feats, pad,
                                   images, masks))
     del feats
+    width_phase(torch, results, card, images, masks)
     resize_phase(torch, results)
     policy_phase(torch, results, card, engine, images, masks)
     predictor = decision_sam_phase(torch, results, card, engine, images,

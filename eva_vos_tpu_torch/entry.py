@@ -40,18 +40,19 @@ TOP_K = 50
 
 def entry(*, device="cuda", strategy: str = "auto", state_dict=None,
           h: int = 480, w: int = 864, mem_frames: int = 4,
-          dtype: torch.dtype = torch.bfloat16):
+          dtype: torch.dtype = torch.bfloat16, keydim: int = 64):
     """One propagation step and its arguments: ``(step, (net, frame,
     mem_k, mem_v))``; ``step(*args)`` returns [2, h, w] fp32
     probabilities (background, object).
 
-    ``net`` is the flagship ``PropagationNetwork`` (resnet50 keys 64 wide,
-    resnet18 values 512 wide) on ``device`` in ``dtype``, in eval mode,
-    with ``state_dict``'s weights (for example a JAX tree carried across
-    by ``utils.stcn_state_dict_from_flax``) or seeded random ones
-    (``models.init.seeded_init_`` from a generator seeded 0).  The inputs
+    ``net`` is the flagship ``PropagationNetwork`` (resnet50 keys
+    ``keydim`` wide, 64 by default; resnet18 values 512 wide) on ``device``
+    in ``dtype``, in eval mode, with ``state_dict``'s weights (for example
+    a JAX tree carried across by ``utils.stcn_state_dict_from_flax``) or
+    seeded random ones (``models.init.seeded_init_`` from a generator
+    seeded 0).  The inputs
     are drawn from ``np.random.default_rng(0)`` in the JAX entry's order:
-    ``frame`` [h, w, 3], ``mem_k`` [M, 64], ``mem_v`` [1, M, 512] with
+    ``frame`` [h, w, 3], ``mem_k`` [M, keydim], ``mem_v`` [1, M, 512] with
     M = mem_frames x (h/16) x (w/16) tokens, each cast to ``dtype``
     through float32, as the JAX package casts them.  The read takes the
     top 50 tokens a query by ``strategy``, 'auto' resolved as the engine
@@ -65,7 +66,7 @@ def entry(*, device="cuda", strategy: str = "auto", state_dict=None,
     hw = h16 * w16
     read = resolve_strategy(strategy, device)
 
-    net = PropagationNetwork()
+    net = PropagationNetwork(keydim=keydim)
     if state_dict is None:
         seeded_init_(net, make_generator(0, "cpu"))
     else:

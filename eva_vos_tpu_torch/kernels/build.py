@@ -1,10 +1,13 @@
 """Build the CUDA kernels with ``nvcc`` and bind them through ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
-own into ``<repo>/.kernel_build/<name>-<hash>.so`` for ``sm_90a``.  The hash
-covers the source, the shared headers (``csrc/*.cuh``) and the flags, so an
-edited kernel is rebuilt at its first use and an unchanged one is loaded as
-it is.  Nothing is built at import:
+own into ``<repo>/.kernel_build/<library>-<hash>.so`` for ``sm_90a``: one
+library ``<name>``, or, for the selections of WIDTH_KERNELS, one library
+``<name>@<CKP>`` for each padded key width CKP of KEY_WIDTHS (built with
+``-DTOPK_KEY_WIDTH=<CKP>``: that width's instances alone, so that the
+widths compile side by side).  The hash covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt at
+its first use and an unchanged one is loaded as it is.  Nothing is built at import:
 the first launch, or :func:`build_all`, builds.  A build that fails raises
 with the compiler's output.
 """
@@ -22,9 +25,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernel_build"
-KERNELS = ("memory_topk", "memory_topk_grid", "memory_topk_resident",
-           "memory_topk_iter", "memory_topk_sort", "memory_readout",
-           "memory_readout_chunked")
+KEY_WIDTHS = (16, 32, 64, 128, 256)  # topk_common.cuh's padded widths CKP
+WIDTH_KERNELS = ("memory_topk", "memory_topk_grid", "memory_topk_resident",
+                 "memory_topk_iter", "memory_topk_sort")
+KERNELS = WIDTH_KERNELS + ("memory_readout", "memory_readout_chunked")
+# every library: a source of KERNELS, or a selection at one key width
+LIBRARIES = tuple(f"{name}@{w}" for name in WIDTH_KERNELS
+                  for w in KEY_WIDTHS) + KERNELS[len(WIDTH_KERNELS):]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,25 +47,40 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    """Where the shared library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def source(library: str) -> str:
+    """The source name of a library of LIBRARIES (``memory_topk@64`` ->
+    ``memory_topk``): its ``csrc/<name>.cu`` and the prefix of its C
+    interface's functions."""
+    return library.partition("@")[0]
+
+
+def _flags(library: str) -> list:
+    width = library.partition("@")[2]
+    return [*NVCC_FLAGS, *([f"-DTOPK_KEY_WIDTH={width}"] if width else [])]
+
+
+def library_path(library: str) -> Path:
+    """Where the shared library ``library`` of LIBRARIES lives."""
+    digest = hashlib.sha256((CSRC / f"{source(library)}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(_flags(library)).encode())
+    return BUILD_DIR / f"{library}-{digest.hexdigest()[:16]}.so"
 
 
-def ptxas_log(name: str) -> str:
+def ptxas_log(library: str) -> str:
     """The compiler's resource report (registers, shared memory, spills)."""
-    log = library_path(name).with_suffix(".log")
+    log = library_path(library).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def build_all(names=KERNELS) -> dict:
-    """Build every missing library, one ``nvcc`` per source, all at once.
+def build_all(names=LIBRARIES) -> dict:
+    """Build every missing library, one ``nvcc`` per library, all at once.
 
-    Returns {name: seconds the build took (0.0 when it was already built)}.
+    Returns {library: seconds its build took (0.0 when it was already
+    built)}.
+    Each compiler writes its report to its own log file, so that none waits
+    on a full pipe while another is read.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -69,19 +91,27 @@ def build_all(names=KERNELS) -> dict:
         # compile to a private name, then rename: concurrent builds never
         # load a half-written library
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        log = tmp.with_suffix(".log")
+        cmd = [nvcc(), *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{source(name)}.cu")]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        procs[name] = (proc, tmp, log, out, time.perf_counter())
     seconds = {name: 0.0 for name in names}
+    pending = dict(procs)
+    while pending:
+        for name, (proc, *_, t0) in list(pending.items()):
+            if proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+                del pending[name]
+        time.sleep(0.05)
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+    for name, (proc, tmp, log, out, _) in procs.items():
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{name}:\n{log.read_text()}")
+            log.unlink()
             continue
-        out.with_suffix(".log").write_text(log)
+        os.replace(log, out.with_suffix(".log"))
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -89,11 +119,12 @@ def build_all(names=KERNELS) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s shared library."""
-    build_all((name,))
-    lib = ctypes.CDLL(str(library_path(name)))
-    err = getattr(lib, f"{name}_error_string")
+def load(library: str) -> ctypes.CDLL:
+    """Build (if needed) and load the shared library ``library`` of
+    LIBRARIES."""
+    build_all((library,))
+    lib = ctypes.CDLL(str(library_path(library)))
+    err = getattr(lib, f"{source(library)}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return lib

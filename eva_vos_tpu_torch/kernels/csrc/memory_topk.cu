@@ -124,7 +124,7 @@
 //     so that ties in score fall to the id bits and keys are distinct.
 //     Pass 1 counts the first digit (the ord's top 11 bits) of every live
 //     key, a 2,048-bin histogram a query of 16-bit counts by shared
-//     atomics (added to a 32-bit one in device memory every 65,528 tokens,
+//     atomics (added to a 32-bit one in device memory every 65,520 tokens,
 //     so that none overflows), and picks the bin where the query's rank
 //     kk = min(k, valid) falls.  Pass 2 writes the keys above that bin to
 //     the query's list and appends those in it to its candidates
@@ -170,19 +170,19 @@ using namespace prune;
 // the running floors [n]) and floored (null, or one int32 counting the rows
 // the floor emptied) are read.  The default selection is the instance
 // without, so that none of the floor's code is in its kernel.
-template <typename T, int CK, bool kNewest>
+template <typename T, int CKP, bool kNewest>
 __global__ void __launch_bounds__(kThreads1, 1)
 topk_prune_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
                         u64* __restrict__ part, float* __restrict__ vals,
-                        int* __restrict__ idx, int n, int valid, int top_k,
-                        u64* floor, int* __restrict__ escalations,
+                        int* __restrict__ idx, int n, int valid, int ck,
+                        int top_k, u64* floor, int* __restrict__ escalations,
                         int* floored) {
   extern __shared__ __align__(16) unsigned tile_smem[];
   const BlockSmem s = carve_block(tile_smem);
   const int q0 = blockIdx.x * kQT;
   const int b = kNewest ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int lo = b * kBlk;
-  score_tile<T, CK>(qk, mk, n, q0, lo, min(lo + kBlk, valid), s);
+  score_tile<T, CKP>(qk, mk, n, q0, lo, min(lo + kBlk, valid), ck, s);
 
   const int warp = threadIdx.x >> 5;
   const int q = q0 + warp;
@@ -212,20 +212,20 @@ topk_prune_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
   }
 }
 
-template <typename T, int CK, bool kNewest>
+template <typename T, int CKP, bool kNewest>
 int launch_pruned(const void* qk, const void* mk, u64* part, float* vals,
-                  int* idx, int n, int valid, int top_k, int n_live,
+                  int* idx, int n, int valid, int ck, int top_k, int n_live,
                   u64* floor, int* escalations, int* floored,
                   cudaStream_t stream) {
-  const size_t smem = block_smem_bytes(CK);
+  const size_t smem = block_smem_bytes(CKP);
   cudaError_t err = cudaFuncSetAttribute(
-      topk_prune_block_kernel<T, CK, kNewest>,
+      topk_prune_block_kernel<T, CKP, kNewest>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kQT - 1) / kQT, n_live);
-  topk_prune_block_kernel<T, CK, kNewest><<<grid, kThreads1, smem, stream>>>(
+  topk_prune_block_kernel<T, CKP, kNewest><<<grid, kThreads1, smem, stream>>>(
       static_cast<const T*>(qk), static_cast<const T*>(mk), part, vals, idx,
-      n, valid, top_k, floor, escalations, floored);
+      n, valid, ck, top_k, floor, escalations, floored);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_live == 1) return static_cast<int>(err);
   return launch_merge_t<kMergeQ>(part, vals, idx, n, top_k, n_live, stream);
@@ -239,8 +239,8 @@ int launch(const void* qk, const void* mk, void* vals, void* idx, int n,
            void* floored) {
   if (n <= 0) return 0;
   const int n_live = live_blocks(valid);
-  if (ck != 64 || top_k < 1 || top_k > 256 || n_live > kMaxLists ||
-      (n_live > 1 && part == nullptr)) {
+  if (ck < 1 || ck > topk::kMaxKeyWidth || top_k < 1 || top_k > 256 ||
+      n_live > kMaxLists || (n_live > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -254,16 +254,23 @@ int launch(const void* qk, const void* mk, void* vals, void* idx, int n,
   int* i = static_cast<int*>(idx);
   int* e = static_cast<int*>(escalations);
   int* fl = static_cast<int*>(floored);
-  if (newest_first) {
-    return is_bf16 ? launch_pruned<__nv_bfloat16, 64, true>(
-                         qk, mk, p, v, i, n, valid, top_k, n_live, f, e, fl, s)
-                   : launch_pruned<float, 64, true>(
-                         qk, mk, p, v, i, n, valid, top_k, n_live, f, e, fl, s);
-  }
-  return is_bf16 ? launch_pruned<__nv_bfloat16, 64, false>(
-                       qk, mk, p, v, i, n, valid, top_k, n_live, f, e, fl, s)
-                 : launch_pruned<float, 64, false>(
-                       qk, mk, p, v, i, n, valid, top_k, n_live, f, e, fl, s);
+  return topk::with_width(ck, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    if (newest_first) {
+      return is_bf16 ? launch_pruned<__nv_bfloat16, kW, true>(
+                           qk, mk, p, v, i, n, valid, ck, top_k, n_live, f, e,
+                           fl, s)
+                     : launch_pruned<float, kW, true>(
+                           qk, mk, p, v, i, n, valid, ck, top_k, n_live, f, e,
+                           fl, s);
+    }
+    return is_bf16 ? launch_pruned<__nv_bfloat16, kW, false>(
+                         qk, mk, p, v, i, n, valid, ck, top_k, n_live, f, e,
+                         fl, s)
+                   : launch_pruned<float, kW, false>(
+                         qk, mk, p, v, i, n, valid, ck, top_k, n_live, f, e,
+                         fl, s);
+  });
 }
 
 // The large-k selection (top_k above 256; any top_k is taken).
@@ -274,11 +281,11 @@ constexpr int kRThreads = 32 * kRWarps;   // 512
 constexpr int kRBins = 2048;              // bins of an 11-bit digit
 // Tokens a pass counts into a tile's 16-bit histograms (two bins a word)
 // before it adds them to the queries' 32-bit ones in device memory: a bin
-// gains at most one a token, so none overflows.
-constexpr int kRRound = 65528;
+// gains at most one a token, so none overflows.  A multiple of 16, the
+// most tokens of a staged chunk, so that no chunk straddles two rounds.
+constexpr int kRRound = 65520;
 constexpr int kRStages = 4;               // a warp's ring of 1 KB chunks
-constexpr int kRChunkElems = 8 * 64;      // bf16 of one staged chunk
-constexpr int kRF32Chunk = 4;             // fp32: tokens of a chunk (1 KB)
+constexpr int kRChunkElems = 8 * 64;      // bf16 of the largest staged piece
 constexpr int kRChunkBytes = 1024;
 constexpr int kRMaxCap = 16384;           // candidates a query keeps at most
 constexpr int kSortChunk = 8192;          // keys a block sorts in shared memory
@@ -331,8 +338,9 @@ struct RadixReg {
 
 // The radix kernel's shared memory: [kRQ][kRBins / 2] histograms (16-bit
 // counts, bin j in the low half of word j, j + 1,024 in the high half), the
-// queries' states and counters, then the staging ring [kRWarps][kRStages]
-// of 1 KB chunks of keys (8 bf16 tokens or 4 fp32 ones).
+// queries' states and counters, the staging ring [kRWarps][kRStages] of
+// 1 KB chunks of keys (a piece of 8 bf16 tokens, or 256 / CKP fp32 ones),
+// then, for keys wider than 64 (RadixQueries), the tile's queries.
 struct RadixSmem {
   unsigned* hist;
   RadixReg* reg;
@@ -341,6 +349,7 @@ struct RadixSmem {
   int* rank;   // the rank still sought among the keys in the digit's bin
   int* level;  // of the digit
   void* ring;
+  void* queries;
 };
 
 __device__ __forceinline__ RadixSmem carve_radix(unsigned char* p) {
@@ -354,18 +363,36 @@ __device__ __forceinline__ RadixSmem carve_radix(unsigned char* p) {
   s.rank = s.cn + kRQ;
   s.level = s.rank + kRQ;
   s.ring = p + 4 * sizeof(int) * kRQ;
+  s.queries = static_cast<unsigned char*>(s.ring) +
+              kRChunkBytes * kRWarps * kRStages;
   return s;
 }
 
-template <typename T>
+// Keys wider than 64 keep the tile's queries in shared memory, not in
+// registers (2 CKP / 16 A fragments, or CKP fp32 channels, a lane would
+// spill): bf16 [kRQ][CKP], 16-byte unit u of row r at u ^ (r mod 8), read
+// by ldmatrix a piece at a time; fp32 [kRQ][CKP + 4], a lane's row read as
+// float4s (rows 4 words apart in the banks).
+template <typename T, int CKP>
+struct RadixQueries {
+  static constexpr bool kShared = CKP > 64;
+  static constexpr int kStride =
+      std::is_same<T, float>::value ? CKP + 4 : CKP;
+  static constexpr size_t kBytes = kShared ? sizeof(T) * kRQ * kStride : 0;
+};
+
+template <typename T, int CKP>
 constexpr size_t radix_smem_bytes() {
   return sizeof(unsigned) * kRQ * kRBins / 2 + sizeof(RadixReg) * kRQ +
-         4 * sizeof(int) * kRQ + kRChunkBytes * kRWarps * kRStages;
+         4 * sizeof(int) * kRQ + kRChunkBytes * kRWarps * kRStages +
+         RadixQueries<T, CKP>::kBytes;
 }
 static_assert((sizeof(unsigned) * kRQ * kRBins / 2 + sizeof(RadixReg) * kRQ +
                4 * sizeof(int) * kRQ) % 16 == 0,
               "16-byte aligned staging ring");
-static_assert(radix_smem_bytes<__nv_bfloat16>() <= 232448,
+static_assert(radix_smem_bytes<float, topk::kMaxKeyWidth>() <= 232448 &&
+                  radix_smem_bytes<__nv_bfloat16, topk::kMaxKeyWidth>() <=
+                      232448,
               "the radix kernel's shared memory fits an SM");
 
 // One more key in bin d of query qi's histogram.  The first digit's top
@@ -555,13 +582,13 @@ __device__ __forceinline__ void next_state(int qi, const RadixSmem& s,
 // kRRound valid tokens a pass that counts adds its 16-bit histograms to
 // hist32 [n][kRBins] (32-bit) after every kRRound tokens but the last ones,
 // and the digits are chosen from both.
-template <typename T>
+template <typename T, int CKP>
 __global__ void __launch_bounds__(kRThreads, 1)
 topk_radix_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
                   const float* __restrict__ norms, u64* __restrict__ keys,
                   u64* __restrict__ cand, int2* __restrict__ meta,
-                  unsigned* __restrict__ hist32, int n, int valid, int kk,
-                  int cap, int* escalations, int* scorings) {
+                  unsigned* __restrict__ hist32, int n, int valid, int ck,
+                  int kk, int cap, int* escalations, int* scorings) {
   extern __shared__ __align__(16) unsigned char radix_smem[];
   const RadixSmem s = carve_radix(radix_smem);
   const int q0 = blockIdx.x * kRQ;
@@ -583,36 +610,63 @@ topk_radix_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
     s.level[qi] = 0;
   }
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  using Q = RadixQueries<T, CKP>;
+  using P = Piece<CKP>;
+  // score = (2 <q, k> - |k|^2) / sqrt(ck), rounded as the plain read; with
+  // sqrt(ck) a power of two (ck = 64 among them) one rounding of
+  // <q, k> (2 / root) - |k|^2 / root, both exact scalings
+  const KeyScale sc(ck);
+  const float two_inv = 2.f * sc.inv;
   // bf16: the tile's queries as A fragments of two m16 tiles (rows g,
-  // g + 8 of tile mt are queries 16 mt + g, 16 mt + g + 8), four k16
-  // steps; fp32: half of two queries' channels a lane (below)
+  // g + 8 of tile mt are queries 16 mt + g, 16 mt + g + 8), CKP / 16 k16
+  // steps, in registers up to CKP = 64; fp32: half of two queries' channels
+  // a lane (below), up to CKP = 64; wider keys stage the queries in shared
+  // memory (RadixQueries)
   const int g = lane >> 2;
   const int quad = lane & 3;
-  unsigned a[2][4][4];
-  if constexpr (kBf16) {
+  constexpr int kRegSteps = Q::kShared ? 1 : CKP / 16;
+  unsigned a[2][kRegSteps][4];
+  constexpr int kHalf = Q::kShared ? 1 : CKP / 2;
+  constexpr int kRot = kHalf == 32 ? 16 : 0;  // see the fp32 pass below
+  float qf[2][kHalf];
+  if constexpr (Q::kShared) {
+    T* qs = static_cast<T*>(s.queries);
+    constexpr int kUnits = CKP * sizeof(T) / 16;  // 16-byte units a row
+    for (int e = threadIdx.x; e < kRQ * kUnits; e += kRThreads) {
+      const int row = e / kUnits;
+      const int unit = e % kUnits;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + row < n) {
+        v = *reinterpret_cast<const uint4*>(
+            reinterpret_cast<const unsigned char*>(
+                qk + static_cast<size_t>(q0 + row) * CKP) + 16 * unit);
+      }
+      const int at = kBf16 ? (unit ^ (row & 7)) : unit;
+      *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(
+          qs + row * Q::kStride) + 16 * at) = v;
+    }
+  } else if constexpr (kBf16) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       const int qa = q0 + 16 * mt + g;
 #pragma unroll
-      for (int kq = 0; kq < 4; ++kq) {
+      for (int kq = 0; kq < kRegSteps; ++kq) {
         const int c = 16 * kq + 2 * quad;
-        a[mt][kq][0] = query_pair(qk, qa, n, c);
-        a[mt][kq][1] = query_pair(qk, qa + 8, n, c);
-        a[mt][kq][2] = query_pair(qk, qa, n, c + 8);
-        a[mt][kq][3] = query_pair(qk, qa + 8, n, c + 8);
+        a[mt][kq][0] = query_pair(qk, qa, n, c, CKP);
+        a[mt][kq][1] = query_pair(qk, qa + 8, n, c, CKP);
+        a[mt][kq][2] = query_pair(qk, qa, n, c + 8, CKP);
+        a[mt][kq][3] = query_pair(qk, qa + 8, n, c + 8, CKP);
       }
     }
-  }
-  float qf[2][32];
-  if constexpr (!kBf16) {
+  } else {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int qa = q0 + (lane & ~1) + j;
 #pragma unroll
-      for (int c = 0; c < 32; c += 8) {
+      for (int c = 0; c < kHalf; c += 8) {
         if (qa < n) {
-          load8(qk + static_cast<size_t>(qa) * 64 + 32 * (lane & 1) +
-                    ((c + 16 * (lane & 1)) & 31),
+          load8(qk + static_cast<size_t>(qa) * CKP + kHalf * (lane & 1) +
+                    ((c + kRot * (lane & 1)) & (kHalf - 1)),
                 qf[j] + c);
         } else {
 #pragma unroll
@@ -669,20 +723,23 @@ topk_radix_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
         const int n_chunks = ((hi_tok + 7) >> 3) - c0;
         const int mine = n_chunks > warp ? (n_chunks - 1 - warp) / kRWarps + 1
                                          : 0;
-        // warp w's i-th chunk: tokens [8 (c0 + w + 16 i), + 8); row r of a
-        // staged chunk holds its 16-byte unit u at u ^ r (as score_block_mma)
-        auto issue = [&](int i) {
-          if (i < mine) {
-            __nv_bfloat16* buf = ring + (i % kRStages) * kRChunkElems;
-            const int tok0 = 8 * (c0 + warp + kRWarps * i);
+        // warp w's i-th chunk: tokens [8 (c0 + w + 16 i), + 8), staged as
+        // P::kPieces pieces (topk_prune.cuh's Piece, swizzled as there);
+        // unit u of the ring is piece u % kPieces of chunk u / kPieces
+        auto issue = [&](int u) {
+          if (u < mine * P::kPieces) {
+            __nv_bfloat16* buf = ring + (u % kRStages) * kRChunkElems;
+            const int tok0 = 8 * (c0 + warp + kRWarps * (u / P::kPieces));
+            const int ch0 = (u % P::kPieces) * P::kW;
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int row = (lane >> 3) + 4 * j;
-              const int unit = lane & 7;
+            for (int e = lane; e < 8 * P::kUnits; e += 32) {
+              const int row = e / P::kUnits;
+              const int unit = e % P::kUnits;
               const int tok = tok0 + row;
               const bool live = tok < valid;
-              cp_async16(buf + row * 64 + ((unit ^ row) << 3),
-                         live ? mk + static_cast<size_t>(tok) * 64 + unit * 8
+              cp_async16(buf + row * P::kW + (P::at(unit, row) << 3),
+                         live ? mk + static_cast<size_t>(tok) * CKP + ch0 +
+                                    unit * 8
                               : mk,
                          live ? 16 : 0);
             }
@@ -690,7 +747,7 @@ topk_radix_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
           cp_async_commit();
         };
 #pragma unroll
-        for (int i = 0; i < kRStages - 1; ++i) issue(i);
+        for (int u = 0; u < kRStages - 1; ++u) issue(u);
         // this lane's tokens' |k|^2, loaded a chunk ahead
         float2 sq_next = make_float2(0.f, 0.f);
         if (mine > 0) {
@@ -703,76 +760,107 @@ topk_radix_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
             sq_next = *reinterpret_cast<const float2*>(
                 norms + 8 * (c0 + warp + kRWarps * (i + 1)) + 2 * quad);
           }
-          issue(i + kRStages - 1);
-          cp_async_wait<kRStages - 1>();
-          __syncwarp();
-          const __nv_bfloat16* buf = ring + (i % kRStages) * kRChunkElems;
-          unsigned bq[8];
-          const int r = lane & 7;
-          ldmatrix_x4(bq, buf + r * 64 + (((lane >> 3) ^ r) << 3));
-          ldmatrix_x4(bq + 4, buf + r * 64 + ((((lane >> 3) + 4) ^ r) << 3));
-          __syncwarp();  // the ring slot is free for the next issue
           float d[2][4];
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) d[mt][e] = 0.f;
-#pragma unroll
-            for (int kq = 0; kq < 4; ++kq) {
-              mma_bf16(d[mt], a[mt][kq], bq[2 * kq], bq[2 * kq + 1]);
-            }
           }
-          // this lane's tokens: columns 2 quad, 2 quad + 1 of the chunk;
-          // score = (2 <q, k> - |k|^2) / 8 as one rounding of q.k / 4 - |k|^2
-          // / 8 (both exact scalings)
-          const int tok = 8 * (c0 + warp + kRWarps * i) + 2 * quad;
-          const float sq8[2] = {sq.x * 0.125f, sq.y * 0.125f};
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
+          for (int p = 0; p < P::kPieces; ++p) {
+            const int u = i * P::kPieces + p;
+            issue(u + kRStages - 1);
+            cp_async_wait<kRStages - 1>();
+            __syncwarp();
+            const __nv_bfloat16* buf = ring + (u % kRStages) * kRChunkElems;
+            unsigned bq[8];
+            const int r = lane & 7;
+            ldmatrix_x4(bq, buf + r * P::kW +
+                                (P::at((lane >> 3) % P::kUnits, r) << 3));
+            if constexpr (P::kUnits == 8) {
+              ldmatrix_x4(bq + 4,
+                          buf + r * P::kW + (P::at((lane >> 3) + 4, r) << 3));
+            }
+            __syncwarp();  // the ring slot is free for the next issue
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int qi = 16 * mt + g + 8 * h;
+            for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-              for (int t = 0; t < 2; ++t) {
-                if (tok + t >= valid) continue;
-                const unsigned ord =
-                    ord_of(fmaf(d[mt][2 * h + t], 0.25f, -sq8[t]) + 0.f);
-                radix_score(ord, tok + t, qi, q0, kind, gate[mt][h],
-                            spill[mt][h], s, keys, cand, kk, cap);
+              for (int kq = 0; kq < P::kW / 16; ++kq) {
+                if constexpr (Q::kShared) {
+                  // the A fragment of k16 step 4 p + kq from shared memory
+                  const int row = 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1);
+                  const int unit = 2 * (4 * p + kq) + (lane >> 4);
+                  unsigned af[4];
+                  ldmatrix_x4(af, static_cast<const __nv_bfloat16*>(
+                                      s.queries) + row * CKP +
+                                      ((unit ^ (row & 7)) << 3));
+                  mma_bf16(d[mt], af, bq[2 * kq], bq[2 * kq + 1]);
+                } else {
+                  mma_bf16(d[mt], a[mt][kq], bq[2 * kq], bq[2 * kq + 1]);
+                }
               }
             }
           }
+          // this lane's tokens: columns 2 quad, 2 quad + 1 of the chunk
+          const int tok = 8 * (c0 + warp + kRWarps * i) + 2 * quad;
+          const float sqv[2] = {sq.x, sq.y};
+          const float sqs[2] = {sq.x * sc.inv, sq.y * sc.inv};
+          with_exact(sc, [&](auto exact) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int qi = 16 * mt + g + 8 * h;
+#pragma unroll
+                for (int t = 0; t < 2; ++t) {
+                  if (tok + t >= valid) continue;
+                  const float x = d[mt][2 * h + t];
+                  const float v = decltype(exact)::value
+                                      ? fmaf(x, two_inv, -sqs[t])
+                                      : sc.div<false>(2.f * x - sqv[t]);
+                  radix_score(ord_of(v + 0.f), tok + t, qi, q0, kind,
+                              gate[mt][h], spill[mt][h], s, keys, cand, kk,
+                              cap);
+                }
+              }
+            }
+          });
         }
         cp_async_wait<0>();
       } else {
-        // fp32 on the FP32 units, exactly: lanes 2 p and 2 p + 1 hold
-        // queries 2 p and 2 p + 1 in registers, channels [32 h, 32 h + 32)
-        // for lane 2 p + h (step c of lane h on channel 32 h + (c + 16 h) %
-        // 32, so that the two halves' broadcasts hit distinct banks); a
-        // token's key is read from the warp's ring of 4-token chunks, and
-        // the partner's half sum of the other query is exchanged, so that
-        // lane l scores query l (its state in registers)
+        // fp32 on the FP32 units, exactly.  Up to CKP = 64, lanes 2 p and
+        // 2 p + 1 hold queries 2 p and 2 p + 1 in registers, channels
+        // [H h, H h + H) (H = CKP / 2) for lane 2 p + h (at CKP = 64 step c
+        // of lane h on channel 32 h + (c + 16 h) % 32, so that the two
+        // halves' broadcasts hit distinct banks); a token's key is read from
+        // the warp's ring of 1 KB chunks (256 / CKP tokens), and the
+        // partner's half sum of the other query is exchanged, so that lane
+        // l scores query l (its state in registers).  Wider keys: lane l
+        // reads query l's row from shared memory and sums all its channels.
         const unsigned gate = radix_gate(s.reg[lane], kind);
         const bool spill = s.reg[lane].mode == kSpill;
         constexpr int kSlot = kRChunkBytes / sizeof(float);
+        constexpr int kTok = kSlot / CKP;  // tokens of a chunk
+        constexpr int kRowUnits = CKP / 4;  // 16-byte units of a key
         float* ring = static_cast<float*>(s.ring) + warp * kRStages * kSlot;
         const int h = lane & 1;
-        const int c0 = lo_tok / kRF32Chunk;
-        const int n_chunks = (hi_tok + kRF32Chunk - 1) / kRF32Chunk - c0;
+        const int c0 = lo_tok / kTok;
+        const int n_chunks = (hi_tok + kTok - 1) / kTok - c0;
         const int mine = n_chunks > warp ? (n_chunks - 1 - warp) / kRWarps + 1
                                          : 0;
         auto issue = [&](int i) {
           if (i < mine) {
             float* buf = ring + (i % kRStages) * kSlot;
-            const int tok0 = kRF32Chunk * (c0 + warp + kRWarps * i);
+            const int tok0 = kTok * (c0 + warp + kRWarps * i);
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-              const int row = (lane >> 4) + 2 * j;
-              const int unit = lane & 15;
+              const int e = lane + 32 * j;
+              const int row = e / kRowUnits;
+              const int unit = e % kRowUnits;
               const int tok = tok0 + row;
               const bool live = tok < valid;
-              cp_async16(buf + row * 64 + unit * 4,
-                         live ? mk + static_cast<size_t>(tok) * 64 + unit * 4
+              cp_async16(buf + row * CKP + unit * 4,
+                         live ? mk + static_cast<size_t>(tok) * CKP + unit * 4
                               : mk,
                          live ? 16 : 0);
             }
@@ -781,49 +869,77 @@ topk_radix_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
         };
 #pragma unroll
         for (int i = 0; i < kRStages - 1; ++i) issue(i);
-        // the chunk's four |k|^2, loaded a chunk ahead
-        float4 sq_next = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (mine > 0) {
-          sq_next = *reinterpret_cast<const float4*>(norms + kRF32Chunk *
-                                                     (c0 + warp));
-        }
-        for (int i = 0; i < mine; ++i) {
-          const float4 sq4 = sq_next;
-          if (i + 1 < mine) {
-            sq_next = *reinterpret_cast<const float4*>(
-                norms + kRF32Chunk * (c0 + warp + kRWarps * (i + 1)));
+        // the chunk's |k|^2, loaded a chunk ahead (float4s from 4 tokens)
+        auto load_sq = [&](int i, float* out) {
+          const float* src = norms + kTok * (c0 + warp + kRWarps * i);
+          if constexpr (kTok >= 4) {
+#pragma unroll
+            for (int e = 0; e < kTok; e += 4) {
+              const float4 v = *reinterpret_cast<const float4*>(src + e);
+              out[e] = v.x;
+              out[e + 1] = v.y;
+              out[e + 2] = v.z;
+              out[e + 3] = v.w;
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < kTok; ++e) out[e] = src[e];
           }
-          const float sq[kRF32Chunk] = {sq4.x, sq4.y, sq4.z, sq4.w};
+        };
+        float sq_next[kTok];
+        if (mine > 0) load_sq(0, sq_next);
+        for (int i = 0; i < mine; ++i) {
+          float sq[kTok];
+#pragma unroll
+          for (int e = 0; e < kTok; ++e) sq[e] = sq_next[e];
+          if (i + 1 < mine) load_sq(i + 1, sq_next);
           issue(i + kRStages - 1);
           cp_async_wait<kRStages - 1>();
           __syncwarp();
           const float* buf = ring + (i % kRStages) * kSlot;
-          const int tok0 = kRF32Chunk * (c0 + warp + kRWarps * i);
+          const int tok0 = kTok * (c0 + warp + kRWarps * i);
 #pragma unroll
-          for (int j = 0; j < kRF32Chunk; ++j) {
-            const float* kr = buf + j * 64 + 32 * h;
-            float acc0 = 0.f, acc1 = 0.f;
+          for (int j = 0; j < kTok; ++j) {
+            float dot;
+            if constexpr (Q::kShared) {
+              const float* qrow =
+                  static_cast<const float*>(s.queries) + lane * Q::kStride;
+              const float* kr = buf + j * CKP;
+              dot = 0.f;
+#pragma unroll 8
+              for (int c = 0; c < CKP; c += 4) {
+                const float4 qv = *reinterpret_cast<const float4*>(qrow + c);
+                const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+                dot = fmaf(qv.x, kv.x, dot);
+                dot = fmaf(qv.y, kv.y, dot);
+                dot = fmaf(qv.z, kv.z, dot);
+                dot = fmaf(qv.w, kv.w, dot);
+              }
+            } else {
+              const float* kr = buf + j * CKP + kHalf * h;
+              float acc0 = 0.f, acc1 = 0.f;
 #pragma unroll
-            for (int c = 0; c < 32; c += 4) {
-              const float4 kv =
-                  *reinterpret_cast<const float4*>(kr + ((c + 16 * h) & 31));
-              acc0 = fmaf(qf[0][c], kv.x, acc0);
-              acc0 = fmaf(qf[0][c + 1], kv.y, acc0);
-              acc0 = fmaf(qf[0][c + 2], kv.z, acc0);
-              acc0 = fmaf(qf[0][c + 3], kv.w, acc0);
-              acc1 = fmaf(qf[1][c], kv.x, acc1);
-              acc1 = fmaf(qf[1][c + 1], kv.y, acc1);
-              acc1 = fmaf(qf[1][c + 2], kv.z, acc1);
-              acc1 = fmaf(qf[1][c + 3], kv.w, acc1);
+              for (int c = 0; c < kHalf; c += 4) {
+                const float4 kv = *reinterpret_cast<const float4*>(
+                    kr + ((c + kRot * h) & (kHalf - 1)));
+                acc0 = fmaf(qf[0][c], kv.x, acc0);
+                acc0 = fmaf(qf[0][c + 1], kv.y, acc0);
+                acc0 = fmaf(qf[0][c + 2], kv.z, acc0);
+                acc0 = fmaf(qf[0][c + 3], kv.w, acc0);
+                acc1 = fmaf(qf[1][c], kv.x, acc1);
+                acc1 = fmaf(qf[1][c + 1], kv.y, acc1);
+                acc1 = fmaf(qf[1][c + 2], kv.z, acc1);
+                acc1 = fmaf(qf[1][c + 3], kv.w, acc1);
+              }
+              const float other = __shfl_xor_sync(kFull, h ? acc0 : acc1, 1);
+              dot = (h ? acc1 : acc0) + other;
             }
-            const float other = __shfl_xor_sync(kFull, h ? acc0 : acc1, 1);
             const int tok = tok0 + j;
             if (tok < valid) {
-              const float dot = (h ? acc1 : acc0) + other;
-              const unsigned ord =
-                  ord_of(fmaf(dot, 0.25f, -0.125f * sq[j]) + 0.f);
-              radix_score(ord, tok, lane, q0, kind, gate, spill, s, keys, cand,
-                          kk, cap);
+              const float v = sc.exact ? fmaf(dot, two_inv, -sc.inv * sq[j])
+                                       : sc.div<false>(2.f * dot - sq[j]);
+              radix_score(ord_of(v + 0.f), tok, lane, q0, kind, gate, spill,
+                          s, keys, cand, kk, cap);
             }
           }
           __syncwarp();  // the ring slot is free for the next issue
@@ -863,8 +979,8 @@ topk_radix_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
 }
 
 // |k_t|^2 in fp32 for t < valid, 0 up to `padded` (the radix kernel reads
-// two tokens at a time).
-template <typename T>
+// its chunks' norms whole), keys CKP wide.
+template <typename T, int CKP>
 __global__ void __launch_bounds__(256)
 topk_key_norms_kernel(const T* __restrict__ mk, float* __restrict__ norms,
                       int valid, int padded) {
@@ -873,9 +989,9 @@ topk_key_norms_kernel(const T* __restrict__ mk, float* __restrict__ norms,
   float sq = 0.f;
   if (t < valid) {
 #pragma unroll
-    for (int c = 0; c < 64; c += 8) {
+    for (int c = 0; c < CKP; c += 8) {
       float v[8];
-      load8(mk + static_cast<size_t>(t) * 64 + c, v);
+      load8(mk + static_cast<size_t>(t) * CKP + c, v);
 #pragma unroll
       for (int i = 0; i < 8; ++i) sq = fmaf(v[i], v[i], sq);
     }
@@ -1167,27 +1283,32 @@ cudaError_t launch_sort(u64* keys, int n, int kk, cudaStream_t stream) {
   }
 }
 
-template <typename T>
+// The norms' padded length: whole chunks of the radix kernel's passes (8
+// bf16 tokens; 256 / CKP fp32 ones, at most 16).
+constexpr int kNormsPad = 16;
+
+template <typename T, int CKP>
 int launch_radix(const void* qk, const void* mk, float* vals, int* idx, int n,
-                 int valid, int top_k, u64* keys, u64* keys2, u64* cand,
-                 int cap, int2* meta, float* norms, unsigned* hist,
+                 int valid, int ck, int top_k, u64* keys, u64* keys2,
+                 u64* cand, int cap, int2* meta, float* norms, unsigned* hist,
                  int* escalations, int* scorings, cudaStream_t stream) {
   const int kk = std::min(top_k, valid);
   cudaError_t err;
   if (kk > 0) {
-    const int padded = (valid + 7) / 8 * 8;
-    topk_key_norms_kernel<T><<<(padded + 255) / 256, 256, 0, stream>>>(
+    const int padded = (valid + kNormsPad - 1) / kNormsPad * kNormsPad;
+    topk_key_norms_kernel<T, CKP><<<(padded + 255) / 256, 256, 0, stream>>>(
         static_cast<const T*>(mk), norms, valid, padded);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t smem = radix_smem_bytes<T>();
-    err = cudaFuncSetAttribute(topk_radix_kernel<T>,
+    const size_t smem = radix_smem_bytes<T, CKP>();
+    err = cudaFuncSetAttribute(topk_radix_kernel<T, CKP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    topk_radix_kernel<T><<<(n + kRQ - 1) / kRQ, kRThreads, smem, stream>>>(
-        static_cast<const T*>(qk), static_cast<const T*>(mk), norms, keys,
-        cand, meta, hist, n, valid, kk, cap, escalations, scorings);
+    topk_radix_kernel<T, CKP>
+        <<<(n + kRQ - 1) / kRQ, kRThreads, smem, stream>>>(
+            static_cast<const T*>(qk), static_cast<const T*>(mk), norms, keys,
+            cand, meta, hist, n, valid, ck, kk, cap, escalations, scorings);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     if (kk < valid) {
@@ -1225,9 +1346,10 @@ int launch_radix(const void* qk, const void* mk, float* vals, int* idx, int n,
 
 extern "C" {
 
-// qk [n, ck], mk [m >= valid, ck] row-major, 16-byte aligned, fp32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1), ck = 64 (the STCN key width);
-// vals/idx [top_k, n]; 1 <= top_k <= 256.  part: [n, n_live, top_k] 64-bit
+// qk [n, ckp], mk [m >= valid, ckp] row-major, 16-byte aligned, fp32
+// (is_bf16 = 0) or bf16 (is_bf16 = 1), ckp = topk::padded_width(ck) for
+// keys ck wide, 1 <= ck <= 256 (the wrapper zero-pads them; ck sets the
+// scale); vals/idx [top_k, n]; 1 <= top_k <= 256.  part: [n, n_live, top_k] 64-bit
 // scratch, n_live = max(1, ceil(valid / 2048)) <= 2,048, or null when
 // n_live = 1 (no merge).  escalations: null, or one int32 on the device that
 // counts the (query, bank block) rows that escalated.  Returns a cudaError_t
@@ -1261,8 +1383,8 @@ int memory_topk_chunked_launch(const void* qk, const void* mk, void* vals,
 // Scratch, null when kk = 0: keys [n, kk] 64-bit; keys2 the same, for the
 // merge passes when kk > 8,192 (else null is allowed); cand [n, cap] 64-bit
 // candidates, 1 <= cap <= 16,384, when kk < valid (else null is allowed);
-// meta [n] int2; norms [ceil(valid / 8) * 8] fp32; hist [n, 2,048] 32-bit
-// when kk < valid and valid > 65,528 (else null is allowed).
+// meta [n] int2; norms [ceil(valid / 16) * 16] fp32; hist [n, 2,048]
+// 32-bit when kk < valid and valid > 65,520 (else null is allowed).
 // escalations: null, or one int32 on the device that counts the queries
 // whose first bin held more than cap keys (they take more scorings of the
 // bank); scorings: null, or one int32 on the device raised (atomicMax) to
@@ -1277,7 +1399,7 @@ int memory_topk_radix_launch(const void* qk, const void* mk, void* vals,
   if (n <= 0) return 0;
   const int live = std::max(valid, 0);
   const int kk = std::min(top_k, live);
-  if (ck != 64 || top_k < 1 ||
+  if (ck < 1 || ck > topk::kMaxKeyWidth || top_k < 1 ||
       (kk > 0 && (keys == nullptr || meta == nullptr || norms == nullptr)) ||
       (kk > kSortChunk && keys2 == nullptr) ||
       (kk < live && (cand == nullptr || cap < 1 || cap > kRMaxCap ||
@@ -1295,11 +1417,15 @@ int memory_topk_radix_launch(const void* qk, const void* mk, void* vals,
   int* e = static_cast<int*>(escalations);
   int* sc = static_cast<int*>(scorings);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_radix<__nv_bfloat16>(qk, mk, v, i, n, live, top_k,
-                                               k1, k2, c, cap, m, nr, h, e,
-                                               sc, s)
-                 : launch_radix<float>(qk, mk, v, i, n, live, top_k, k1, k2,
-                                       c, cap, m, nr, h, e, sc, s);
+  return topk::with_width(ck, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    return is_bf16 ? launch_radix<__nv_bfloat16, kW>(qk, mk, v, i, n, live, ck,
+                                                     top_k, k1, k2, c, cap, m,
+                                                     nr, h, e, sc, s)
+                   : launch_radix<float, kW>(qk, mk, v, i, n, live, ck, top_k,
+                                             k1, k2, c, cap, m, nr, h, e, sc,
+                                             s);
+  });
 }
 
 const char* memory_topk_error_string(int status) {

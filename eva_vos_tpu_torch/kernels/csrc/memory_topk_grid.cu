@@ -44,8 +44,10 @@
 
 extern "C" {
 
-// qk [n, ck], mk [m >= valid, ck] row-major, 16-byte aligned, fp32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1), ck = 64; part [n, n_live, top_k]
+// qk [n, ckp], mk [m >= valid, ckp] row-major, 16-byte aligned, fp32
+// (is_bf16 = 0) or bf16 (is_bf16 = 1), ckp = topk::padded_width(ck) for
+// keys ck wide, 1 <= ck <= 256 (the wrapper zero-pads them; ck sets the
+// scale); part [n, n_live, top_k]
 // 64-bit scratch, n_live = max(1, ceil(valid / 2048)) <= 6,000, or null when
 // n_live = 1 (no merge); out_v/out_i [n, top_k]; 1 <= top_k <= 256.
 // escalations: null, or one int32 on the device that counts the (query,
@@ -54,9 +56,9 @@ int memory_topk_grid_launch(const void* qk, const void* mk, void* part,
                             void* out_v, void* out_i, int n, int valid, int ck,
                             int top_k, int n_live, int raw, int is_bf16,
                             void* stream, void* escalations) {
-  return prune::launch_rows_checked<64>(qk, mk, part, out_v, out_i, n, valid,
-                                        ck, top_k, n_live, raw, is_bf16,
-                                        stream, escalations);
+  return prune::launch_rows_checked(qk, mk, part, out_v, out_i, n, valid,
+                                    ck, top_k, n_live, raw, is_bf16, stream,
+                                    escalations);
 }
 
 const char* memory_topk_grid_error_string(int status) {

@@ -37,11 +37,17 @@
 //     to its k largest, as a wave cuts a buffer).
 //  2. the bank loop: the block walks its segment newest first (the engine's
 //     newest memory frames lie nearest to its queries, so the thresholds
-//     rise early), 128 tokens a step, staged through a ring of kRing steps
-//     by the Tensor Memory Accelerator: one thread issues each step as one
-//     16 KB tensor load (128-byte swizzle, so that ldmatrix reads hit
-//     distinct banks) that completes the slot's mbarrier (per-thread
-//     cp.async, 1,024 a step, stalled at issue).  bf16 keys are scored on
+//     rise early), 128 tokens a step, staged through a ring of pieces by
+//     the Tensor Memory Accelerator: one thread issues each piece (128
+//     tokens of at most 64 channels: a step is CKP / 64 pieces, or one of
+//     CKP < 64) as one tensor load of up to 16 KB (128-, 64- or 32-byte
+//     swizzle by the row's bytes, so that ldmatrix reads hit distinct
+//     banks) that completes the slot's mbarrier (per-thread cp.async,
+//     1,024 a step, stalled at issue).  Keys wider than 64 keep the
+//     queries in shared memory (their A fragments would spill), read a
+//     piece at a time, with a block barrier between a step's pieces before
+//     a slot is reloaded; at CKP = 256 with 64-query tiles the ring holds
+//     three pieces (kRingPieces), so that it fits the 227 KB.  bf16 keys are scored on
 //     the tensor cores: the block's queries are MT m16 A tiles, each of the
 //     16 warps holds two of them in registers for the whole walk and scores
 //     them against 16 (MT = 4) or 8 (MT = 2) tokens of a step (mma.sync
@@ -54,8 +60,12 @@
 //     read from L2 directly).
 //  3. a running threshold per query: the k-th largest key that the query's
 //     buffer kept at its last compaction (0 until then).  Scores are
-//     compared with it in registers as x = 2 <q, k> - |k|^2 against 8 times
-//     its score (exact: a power of two), a row's largest x first, so that
+//     compared with it in registers as x = 2 <q, k> - |k|^2 against 8
+//     times its score (exact: a power of two) in the instance for bf16 keys
+//     64 wide (kExact), the main path, whose step then holds no other
+//     instruction; every other instance compares x / sqrt(ck), rounded as
+//     the plain read rounds, with the score itself; a row's largest first,
+//     so that
 //     most rows of most steps cost one compare; the keys above the
 //     thresholds go to the queries' candidate buffers in shared memory, a
 //     lane's few keys of a row by one shared atomic.  Keys are distinct, so
@@ -99,9 +109,7 @@ using namespace prune;
 constexpr int kStep = 128;                 // bank tokens a block scores a step
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;      // 512
-constexpr int kRing = 4;                   // staged steps of bf16 keys
-constexpr int kStepElems = kStep * 64;     // bf16 of one staged step: 16 KB
-constexpr int kQStride = 68;               // fp32 query row (padded: banks)
+constexpr int kSlotElems = kStep * 64;     // bf16 of a ring slot: 16 KB
 
 // MT m16 tiles of queries a block: 4 (64 queries, 256-key buffers) for
 // top_k <= 128, 2 (32 queries, 512-key buffers) above: 128 KB of buffers
@@ -124,24 +132,41 @@ static_assert(256 <= Tile<2>::kCap - kStep && 128 <= Tile<4>::kCap - kStep,
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
+// Ring slots (pieces) of bf16 keys CKP wide: four, but three at CKP = 256
+// with 64-query tiles, whose queries take 32 KB.
+template <int MT, int CKP>
+constexpr int kRingPieces = CKP == 256 && MT == 4 ? 3 : 4;
+
+// bf16 queries kept in shared memory (keys wider than 64): [kQ][CKP],
+// 16-byte unit u of row r at u ^ (r mod 8).
+template <int CKP>
+constexpr bool kSharedQ = CKP > 64;
+
+// fp32 query row (padded: rows 4 words apart in the banks)
+template <int CKP>
+constexpr int kQStride = CKP + 4;
+
 // Shared memory (after rounding its base up to kRingAlign): the staging
-// ring (bf16) or the fp32 queries, then the candidate buffers, the
-// thresholds (key, and its score: -inf for key 0), the buffers' key counts
-// and the ring's mbarriers.
-template <typename T, int MT>
+// ring and the queries of wide keys (bf16) or the fp32 queries, then the
+// candidate buffers, the thresholds (key, and its score: -inf for key 0),
+// the buffers' key counts and the ring's mbarriers.
+template <typename T, int MT, int CKP>
 __host__ __device__ constexpr size_t head_bytes() {
-  return kBf16<T> ? sizeof(__nv_bfloat16) * kRing * kStepElems
-                  : sizeof(float) * Tile<MT>::kQ * kQStride;
+  return kBf16<T> ? sizeof(__nv_bfloat16) *
+                        (kRingPieces<MT, CKP> * kSlotElems +
+                         (kSharedQ<CKP> ? Tile<MT>::kQ * CKP : 0))
+                  : sizeof(float) * Tile<MT>::kQ * kQStride<CKP>;
 }
 
 constexpr size_t kRingAlign = 1024;  // the 128-byte swizzle's period
 
-template <typename T, int MT>
+template <typename T, int MT, int CKP>
 constexpr size_t smem_bytes() {
   using G = Tile<MT>;
-  return kRingAlign + head_bytes<T, MT>() +
+  return kRingAlign + head_bytes<T, MT, CKP>() +
          sizeof(u64) * G::kQ * (G::kStride + 1) +
-         (sizeof(float) + sizeof(int)) * G::kQ + sizeof(u64) * kRing;
+         (sizeof(float) + sizeof(int)) * G::kQ +
+         sizeof(u64) * kRingPieces<MT, CKP>;
 }
 
 __device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
@@ -151,22 +176,24 @@ __device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
                : "memory");
 }
 
-// One TMA load of a [128 token, 64 channel] bf16 box at token row `row` to
-// dst (1,024-byte aligned), 128-byte swizzled: 16-byte unit u of row r at
-// u ^ (r & 7); rows past the map's `valid` rows are zeros.  `bar` counts
-// its bytes.
-__device__ __forceinline__ void tma_load_step(void* dst, const CUtensorMap* map,
-                                              int row, u64* bar) {
+// One TMA load of a [128 token, kW channel] bf16 box (a Piece of keys CKP
+// wide: 16-byte unit u of row r at Piece::at(u, r)) at token row `row` and
+// channel `col` to dst (1,024-byte aligned); rows past the map's `valid`
+// rows are zeros.  `bar` counts its `bytes`.
+__device__ __forceinline__ void tma_load_piece(void* dst,
+                                               const CUtensorMap* map,
+                                               int col, int row, int bytes,
+                                               u64* bar) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
           smem_addr(bar)),
-      "r"(kStepElems * 2)
+      "r"(bytes)
       : "memory");
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
           smem_addr(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(0), "r"(row),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(col), "r"(row),
       "r"(smem_addr(bar))
       : "memory");
 }
@@ -328,22 +355,26 @@ __device__ __forceinline__ u64 cut_buffer(u64* buf, int count, int live,
   return cut_keys<CAP / 32>(buf, count, live, top_k);
 }
 
-// The walk of one (query tile, bank segment).  kRows: vals/idx are [N, k]
-// rows, weights unless `raw`; else [k, N], raw scores (`raw` unread).
-template <typename T, int MT, bool kRows>
+// The walk of one (query tile, bank segment), keys CKP wide (scaled for
+// keys ck wide; kExact: ck = CKP = 64).  kRows: vals/idx are [N, k] rows,
+// weights unless `raw`; else [k, N], raw scores (`raw` unread).
+template <typename T, int MT, int CKP, bool kRows, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
 topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
                      float* __restrict__ vals, int* __restrict__ idx,
-                     u64* __restrict__ part, int n, int valid, int top_k,
-                     int raw, int* __restrict__ compactions,
+                     u64* __restrict__ part, int n, int valid, int ck,
+                     int top_k, int raw, int* __restrict__ compactions,
                      const __grid_constant__ CUtensorMap keys) {
   using G = Tile<MT>;
+  using P = Piece<CKP>;
+  constexpr int kRing = kRingPieces<MT, CKP>;
   extern __shared__ __align__(16) unsigned char res_smem[];
   unsigned char* head = res_smem + (kRingAlign - smem_addr(res_smem) %
                                                      kRingAlign) % kRingAlign;
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(head);
+  __nv_bfloat16* s_qb = ring + kRing * kSlotElems;  // kSharedQ<CKP>
   float* s_q = reinterpret_cast<float*>(head);
-  u64* cand = reinterpret_cast<u64*>(head + head_bytes<T, MT>());
+  u64* cand = reinterpret_cast<u64*>(head + head_bytes<T, MT, CKP>());
   u64* thr = cand + G::kQ * G::kStride;
   float* thr_v = reinterpret_cast<float*>(thr + G::kQ);
   int* cnt = reinterpret_cast<int*>(thr_v + G::kQ);
@@ -365,6 +396,13 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
   const int last = static_cast<int>(
       static_cast<long long>(blockIdx.y + 1) * n_steps / gridDim.y);
   const int count = last - first;
+  // kExact: scores are compared as x = 2 <q, k> - |k|^2 against 8 times
+  // the threshold's score, and a kept key's score is x / 8; else as
+  // x / sqrt(ck) against the score
+  static_assert(!kExact || CKP == 64, "the exact instance takes ck = 64");
+  const KeyScale sc(ck);
+  constexpr float xs = kExact ? 8.f : 1.f;
+  constexpr float ks = kExact ? 0.125f : 1.f;
 
   for (int r = threadIdx.x; r < G::kQ; r += kThreads) {
     thr[r] = 0ull;
@@ -375,7 +413,6 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
     for (int i = 0; i < kRing; ++i) mbar_init(full + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
   // the lane's rows of the accumulator tiles: query 32 pair + 16 m + g + 8 h
   int rows[2][2];
   bool row_live[2][2];
@@ -387,62 +424,83 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
       row_live[m][h] = q0 + rows[m][h] < n;
     }
   }
-  unsigned a[2][4][4];  // bf16: the warp's queries as A fragments
-  if constexpr (kBf16<T>) {
+  // bf16: the warp's queries as A fragments, in registers up to CKP = 64
+  constexpr int kRegSteps = kSharedQ<CKP> ? 1 : CKP / 16;
+  unsigned a[2][kRegSteps][4];
+  if constexpr (kBf16<T> && kSharedQ<CKP>) {
+    constexpr int kUnits = CKP / 8;
+    for (int e = threadIdx.x; e < G::kQ * kUnits; e += kThreads) {
+      const int row = e / kUnits;
+      const int unit = e % kUnits;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + row < n) {
+        v = *reinterpret_cast<const uint4*>(
+            qk + static_cast<size_t>(q0 + row) * CKP + 8 * unit);
+      }
+      *reinterpret_cast<uint4*>(s_qb + row * CKP +
+                                8 * (unit ^ (row & 7))) = v;
+    }
+  } else if constexpr (kBf16<T>) {
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < kRegSteps; ++kk) {
         const int c = 16 * kk + 2 * quad;
         const int q = q0 + rows[m][0];
-        a[m][kk][0] = query_pair(qk, q, n, c);
-        a[m][kk][1] = query_pair(qk, q + 8, n, c);
-        a[m][kk][2] = query_pair(qk, q, n, c + 8);
-        a[m][kk][3] = query_pair(qk, q + 8, n, c + 8);
+        a[m][kk][0] = query_pair(qk, q, n, c, CKP);
+        a[m][kk][1] = query_pair(qk, q + 8, n, c, CKP);
+        a[m][kk][2] = query_pair(qk, q, n, c + 8, CKP);
+        a[m][kk][3] = query_pair(qk, q + 8, n, c + 8, CKP);
       }
     }
   } else {
-    for (int e = threadIdx.x; e < G::kQ * 8; e += kThreads) {
-      const int qq = e >> 3;
-      const int c = (e & 7) * 8;
+    for (int e = threadIdx.x; e < G::kQ * (CKP / 8); e += kThreads) {
+      const int qq = e / (CKP / 8);
+      const int c = (e % (CKP / 8)) * 8;
       float v[8];
       if (q0 + qq < n) {
-        load8(qk + static_cast<size_t>(q0 + qq) * 64 + c, v);
+        load8(qk + static_cast<size_t>(q0 + qq) * CKP + c, v);
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i) v[i] = 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s_q[qq * kQStride + c + i] = v[i];
+      for (int i = 0; i < 8; ++i) s_q[qq * kQStride<CKP> + c + i] = v[i];
     }
   }
+  __syncthreads();
 
-  // bf16: walked step j (bank step last - 1 - j) into ring slot j % kRing
-  // by one TMA load (thread 0), which completes the slot's mbarrier
-  auto issue = [&](int j) {
-    if (kBf16<T> && threadIdx.x == 0 && j < count) {
+  // bf16: walked piece u (piece u % kPieces of step u / kPieces, bank step
+  // last - 1 - u / kPieces) into ring slot u % kRing by one TMA load
+  // (thread 0), which completes the slot's mbarrier
+  auto issue = [&](int u) {
+    if (kBf16<T> && threadIdx.x == 0 && u < count * P::kPieces) {
       // the slot's last readers passed a barrier: order their (generic)
       // reads before the (async) write
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      tma_load_step(ring + (j % kRing) * kStepElems, &keys,
-                    (last - 1 - j) * kStep, full + j % kRing);
+      tma_load_piece(ring + (u % kRing) * kSlotElems, &keys,
+                     (u % P::kPieces) * P::kW,
+                     (last - 1 - u / P::kPieces) * kStep,
+                     kStep * P::kW * 2, full + u % kRing);
     }
   };
 #pragma unroll
-  for (int j = 0; j < kRing - 1; ++j) issue(j);
+  for (int u = 0; u < kRing - 1; ++u) issue(u);
 
   constexpr int kNT = G::kWarpToks / 8;  // the warp's n8 tiles of a step
   int compacted = 0;  // this warp's compactions during the walk
   bool over = false;  // one of this warp's buffers could overflow next step
 #pragma unroll 1
   for (int j = 0; j < count; ++j) {
-    if constexpr (kBf16<T>) mbar_wait(full + j % kRing, (j / kRing) & 1);
-    // step j is staged, and every warp is done with step j - 1's slot and
-    // appends.  A compaction wave: when some buffer of the block holds more
-    // than kCap - kStep keys, every buffer that gained keys since its last
-    // compaction is compacted (warp w its buffers w, w + kWarps, ...), so
-    // that the block waits for a warp's sorts in a few steps, not in every
-    // step where one buffer fills.
+    const int u0 = j * P::kPieces;  // the step's first piece
+    if constexpr (kBf16<T>) mbar_wait(full + u0 % kRing, (u0 / kRing) & 1);
+    // step j's first piece is staged, and every warp is done with the
+    // previous piece's slot and the previous step's appends.  A compaction
+    // wave: when some buffer of the block holds more than kCap - kStep
+    // keys, every buffer that gained keys since its last compaction is
+    // compacted (warp w its buffers w, w + kWarps, ...), so that the block
+    // waits for a warp's sorts in a few steps, not in every step where one
+    // buffer fills.
     if (__syncthreads_or(over)) {
       const int c = lane < G::kMine ? cnt[warp + kWarps * lane] : 0;
       unsigned todo = __ballot_sync(kFull, c > top_k);
@@ -469,10 +527,9 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
       }
       __syncthreads();
     }
-    issue(j + kRing - 1);
+    issue(u0 + kRing - 1);
     const int tok0 = (last - 1 - j) * kStep + tg * G::kWarpToks;
-    // the rows' thresholds as (x, id), x = 2 <q, k> - |k|^2 = 8 score
-    // (exact: a power of two): a key is above its row's if its x is
+    // the rows' thresholds as (x, id): a key is above its row's if its x is
     // greater, or equal with a lower id.  -inf: no threshold yet; +inf: a
     // row past the last query, which admits nothing.
     float tx[2][2];
@@ -481,7 +538,7 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
     for (int m = 0; m < 2; ++m) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        tx[m][h] = row_live[m][h] ? 8.f * thr_v[rows[m][h]]
+        tx[m][h] = row_live[m][h] ? xs * thr_v[rows[m][h]]
                                   : __uint_as_float(0x7f800000u);
         tid[m][h] = static_cast<int>(~static_cast<unsigned>(thr[rows[m][h]]));
       }
@@ -491,34 +548,83 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
     // (i & 1)), the m16n8 accumulator layout; -inf for a token past valid
     float x[kNT][2][4];
     if constexpr (kBf16<T>) {
-      const __nv_bfloat16* stage = ring + (j % kRing) * kStepElems;
       const int row0 = tg * G::kWarpToks;  // the warp's first row of the step
-      unsigned b[kNT][8];
+      // |k|^2 on the tensor cores: the diagonal of K K^T, K the warp's 16
+      // staged keys (8 twice over with one n8 tile) as an m16 A tile,
+      // summed over the step's pieces as the products are
+      float gram[kNT][4];
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
-        const int r = row0 + 8 * nt + (lane & 7);
-        const __nv_bfloat16* rowp = stage + r * 64;
-        ldmatrix_x4(b[nt], rowp + (((lane >> 3) ^ (r & 7)) << 3));
-        ldmatrix_x4(b[nt] + 4, rowp + ((((lane >> 3) + 4) ^ (r & 7)) << 3));
-      }
-      // |k|^2 on the tensor cores: the diagonal of K K^T, K the warp's 16
-      // staged keys (8 twice over with one n8 tile) as an m16 A tile
-      float gram[kNT][4];
-      {
-        const int r = row0 + (kNT == 2 ? (lane & 15) : (lane & 7));
-        const __nv_bfloat16* rowp = stage + r * 64;
-        unsigned ak[4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          ldmatrix_x4(ak[kk], rowp + (((2 * kk + (lane >> 4)) ^ (r & 7)) << 3));
+        for (int e = 0; e < 4; ++e) {
+          gram[nt][e] = 0.f;
+          x[nt][0][e] = 0.f;
+          x[nt][1][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P::kPieces; ++p) {
+        const int u = u0 + p;
+        if (p > 0) {  // every warp is done with piece u - 1's slot
+          __syncthreads();
+          issue(u + kRing - 1);
+          mbar_wait(full + u % kRing, (u / kRing) & 1);
+        }
+        const __nv_bfloat16* stage = ring + (u % kRing) * kSlotElems;
+        unsigned b[kNT][8];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int r = row0 + 8 * nt + (lane & 7);
+          const __nv_bfloat16* rowp = stage + r * P::kW;
+          ldmatrix_x4(b[nt], rowp + (P::at((lane >> 3) % P::kUnits, r) << 3));
+          if constexpr (P::kUnits == 8) {
+            ldmatrix_x4(b[nt] + 4, rowp + (P::at((lane >> 3) + 4, r) << 3));
+          }
+        }
+        constexpr int kSteps = P::kW / 16;  // k16 steps of a piece
+        {
+          const int r = row0 + (kNT == 2 ? (lane & 15) : (lane & 7));
+          const __nv_bfloat16* rowp = stage + r * P::kW;
+          unsigned ak[kSteps][4];
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk) {
+            ldmatrix_x4(ak[kk], rowp + (P::at(2 * kk + (lane >> 4), r) << 3));
+          }
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+            for (int kk = 0; kk < kSteps; ++kk) {
+              mma_bf16(gram[nt], ak[kk], b[nt][2 * kk], b[nt][2 * kk + 1]);
+            }
+          }
+        }
+        // the piece's A fragments: the registers' (CKP <= 64), or k16 steps
+        // kSteps p + kk of the queries in shared memory
+        unsigned af[2][kSteps][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk) {
+            if constexpr (kSharedQ<CKP>) {
+              const int row =
+                  32 * pair + 16 * m + (lane & 7) + 8 * ((lane >> 3) & 1);
+              const int unit = 2 * (kSteps * p + kk) + (lane >> 4);
+              ldmatrix_x4(af[m][kk],
+                          s_qb + row * CKP + ((unit ^ (row & 7)) << 3));
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) af[m][kk][e] = a[m][kk][e];
+            }
+          }
         }
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) gram[nt][e] = 0.f;
+          for (int m = 0; m < 2; ++m) {
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            mma_bf16(gram[nt], ak[kk], b[nt][2 * kk], b[nt][2 * kk + 1]);
+            for (int kk = 0; kk < kSteps; ++kk) {
+              mma_bf16(x[nt][m], af[m][kk], b[nt][2 * kk], b[nt][2 * kk + 1]);
+            }
           }
         }
       }
@@ -533,15 +639,10 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
         if (tok + 1 >= valid) sq1 = __uint_as_float(0x7f800000u);
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            mma_bf16(d, a[m][kk], b[nt][2 * kk], b[nt][2 * kk + 1]);
-          }
-          x[nt][m][0] = 2.f * d[0] - sq0;
-          x[nt][m][1] = 2.f * d[1] - sq1;
-          x[nt][m][2] = 2.f * d[2] - sq0;
-          x[nt][m][3] = 2.f * d[3] - sq1;
+          x[nt][m][0] = 2.f * x[nt][m][0] - sq0;
+          x[nt][m][1] = 2.f * x[nt][m][1] - sq1;
+          x[nt][m][2] = 2.f * x[nt][m][2] - sq0;
+          x[nt][m][3] = 2.f * x[nt][m][3] - sq1;
         }
       }
     } else {
@@ -554,11 +655,11 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
           const int tok = tok0 + 8 * nt + 2 * quad + e;
           float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
           float sq = 0.f;
-#pragma unroll
-          for (int c = 0; c < 64; c += 8) {
+#pragma unroll 8
+          for (int c = 0; c < CKP; c += 8) {
             float kv[8];
             if (tok < valid) {
-              load8(mk + static_cast<size_t>(tok) * 64 + c, kv);
+              load8(mk + static_cast<size_t>(tok) * CKP + c, kv);
             } else {
 #pragma unroll
               for (int i = 0; i < 8; ++i) kv[i] = 0.f;
@@ -569,7 +670,7 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
             for (int m = 0; m < 2; ++m) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
-                const float* qrow = s_q + rows[m][h] * kQStride + c;
+                const float* qrow = s_q + rows[m][h] * kQStride<CKP> + c;
 #pragma unroll
                 for (int i = 0; i < 8; i += 4) {
                   const float4 qv = *reinterpret_cast<const float4*>(qrow + i);
@@ -588,6 +689,19 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
             for (int h = 0; h < 2; ++h) {
               x[nt][m][2 * h + e] = 2.f * acc[m][h] - sq;
             }
+          }
+        }
+      }
+    }
+    if constexpr (!kExact) {  // scores: x / root, rounded as the plain read
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {  // -inf (a dead token) stays -inf
+            const float v = x[nt][m][i];
+            x[nt][m][i] = v == topk::neg_inf() ? v : sc.div<false>(v);
           }
         }
       }
@@ -644,7 +758,7 @@ topk_resident_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
         const int p = m ? (h ? at[1][1]++ : at[1][0]++)
                         : (h ? at[0][1]++ : at[0][0]++);
         cand[(32 * pair + 16 * m + g + 8 * h) * G::kStride + p] =
-            key_of(ord_of(pick<kNT * 8>(&x[0][0][0], bit) / 8.f + 0.f), tok);
+            key_of(ord_of(pick<kNT * 8>(&x[0][0][0], bit) * ks + 0.f), tok);
       }
     }
     __syncthreads();  // the step's appends are in the buffers
@@ -735,11 +849,13 @@ topk_rows_cut_kernel(u64* __restrict__ part, float* __restrict__ out_v,
             out_i + static_cast<size_t>(q) * top_k, top_k, raw);
 }
 
-// The TMA map of bf16 keys mk [valid, 64] in boxes of one step, 128-byte
-// swizzled (the map's rows stop at `valid`: the TMA writes zeros past it).
-// cuTensorMapEncodeTiled is looked up at run time (cudaGetDriverEntryPoint),
-// so the library needs no link against libcuda.
-inline cudaError_t keys_map(const void* mk, int valid, CUtensorMap* map) {
+// The TMA map of bf16 keys mk [valid, CKP] in boxes of one piece (128
+// tokens of Piece<CKP>::kW channels), swizzled by the box row's bytes as
+// Piece::at reads it (the map's rows stop at `valid`: the TMA writes zeros
+// past it).  cuTensorMapEncodeTiled is looked up at run time
+// (cudaGetDriverEntryPoint), so the library needs no link against libcuda.
+template <int CKP>
+cudaError_t keys_map(const void* mk, int valid, CUtensorMap* map) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -751,36 +867,42 @@ inline cudaError_t keys_map(const void* mk, int valid, CUtensorMap* map) {
       return err != cudaSuccess ? err : cudaErrorSymbolNotFound;
     }
   }
-  const cuuint64_t dims[2] = {64, static_cast<cuuint64_t>(valid)};
-  const cuuint64_t strides[1] = {64 * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, kStep};
+  using P = Piece<CKP>;
+  const cuuint64_t dims[2] = {CKP, static_cast<cuuint64_t>(valid)};
+  const cuuint64_t strides[1] = {CKP * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {P::kW, kStep};
   const cuuint32_t steps[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      P::kUnits == 8   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : P::kUnits == 4 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(mk), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, int MT, bool kRows>
+template <typename T, int MT, int CKP, bool kRows, bool kExact>
 int launch(const void* qk, const void* mk, float* vals, int* idx, u64* part,
-           int n, int valid, int top_k, int segments, int* compactions,
-           int raw, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, MT>();
+           int n, int valid, int ck, int top_k, int segments,
+           int* compactions, int raw, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, MT, CKP>();
+  static_assert(smem <= 232448, "the walk's shared memory fits an SM");
   cudaError_t err = cudaFuncSetAttribute(
-      topk_resident_kernel<T, MT, kRows>,
+      topk_resident_kernel<T, MT, CKP, kRows, kExact>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map{};
   if (kBf16<T> && valid > 0) {
-    err = keys_map(mk, valid, &map);
+    err = keys_map<CKP>(mk, valid, &map);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((n + Tile<MT>::kQ - 1) / Tile<MT>::kQ, segments);
-  topk_resident_kernel<T, MT, kRows><<<grid, kThreads, smem, stream>>>(
+  topk_resident_kernel<T, MT, CKP, kRows, kExact>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qk), static_cast<const T*>(mk), vals, idx, part,
-      n, valid, top_k, raw, compactions, map);
+      n, valid, ck, top_k, raw, compactions, map);
   err = cudaGetLastError();
   if (err != cudaSuccess || segments == 1) return static_cast<int>(err);
   if constexpr (kRows) {
@@ -794,24 +916,36 @@ int launch(const void* qk, const void* mk, float* vals, int* idx, u64* part,
   }
 }
 
-// MT = 4 (64 queries, 256-key buffers) for top_k <= 128, else MT = 2.
-template <typename T, bool kRows>
+// MT = 4 (64 queries, 256-key buffers) for top_k <= 128, else MT = 2; the
+// exact instance for bf16 keys 64 wide.
+template <typename T, int CKP, bool kRows>
 int launch_dtype(const void* qk, const void* mk, float* vals, int* idx,
-                 u64* part, int n, int valid, int top_k, int segments,
+                 u64* part, int n, int valid, int ck, int top_k, int segments,
                  int* compactions, int raw, cudaStream_t stream) {
-  if (top_k <= 128) {
-    return launch<T, 4, kRows>(qk, mk, vals, idx, part, n, valid, top_k,
-                               segments, compactions, raw, stream);
+  auto tile = [&](auto exact) {
+    constexpr bool kE = decltype(exact)::value;
+    if (top_k <= 128) {
+      return launch<T, 4, CKP, kRows, kE>(qk, mk, vals, idx, part, n, valid,
+                                          ck, top_k, segments, compactions,
+                                          raw, stream);
+    }
+    return launch<T, 2, CKP, kRows, kE>(qk, mk, vals, idx, part, n, valid, ck,
+                                        top_k, segments, compactions, raw,
+                                        stream);
+  };
+  if constexpr (kBf16<T> && CKP == 64) {
+    if (ck == 64) return tile(std::true_type{});
   }
-  return launch<T, 2, kRows>(qk, mk, vals, idx, part, n, valid, top_k,
-                             segments, compactions, raw, stream);
+  return tile(std::false_type{});
 }
 
 // The C interface of memory_topk_resident.cu (kRows false) and
 // memory_topk_iter.cu (kRows true): checks the arguments and launches the
-// walk, and the merge of several segments.  qk [n, ck], mk [m >= valid, ck]
-// row-major, 16-byte aligned, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1),
-// ck = 64; vals/idx [top_k, n] or, kRows, [n, top_k]; 1 <= top_k <= 256.
+// walk, and the merge of several segments.  qk [n, ckp], mk [m >= valid,
+// ckp] row-major, 16-byte aligned, fp32 (is_bf16 = 0) or bf16 (is_bf16 =
+// 1), ckp = topk::padded_width(ck) for keys ck wide, 1 <= ck <= 256 (the
+// wrapper zero-pads them; ck sets the scale); vals/idx [top_k, n] or,
+// kRows, [n, top_k]; 1 <= top_k <= 256.
 // segments: the bank segments S, 1 <= S <= the live 128-token steps (any
 // S >= 1 when valid = 0), at most kMaxLists, and, kRows, S top_k <=
 // kCutMergeKeys when S > 1; part: [n, S, top_k] 64-bit scratch, or null
@@ -825,7 +959,8 @@ int launch_checked(const void* qk, const void* mk, void* vals, void* idx,
                    void* stream) {
   if (n <= 0) return 0;
   const int n_steps = (valid + kStep - 1) / kStep;
-  if (ck != 64 || top_k < 1 || top_k > 256 || valid < 0 || segments < 1 ||
+  if (ck < 1 || ck > topk::kMaxKeyWidth || top_k < 1 || top_k > 256 ||
+      valid < 0 || segments < 1 ||
       segments > kMaxLists || (segments > n_steps && segments > 1) ||
       (segments > 1 && part == nullptr) ||
       (kRows && segments > 1 && segments * top_k > kCutMergeKeys)) {
@@ -836,12 +971,15 @@ int launch_checked(const void* qk, const void* mk, void* vals, void* idx,
   u64* p = static_cast<u64*>(part);
   int* c = static_cast<int*>(compactions);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_dtype<__nv_bfloat16, kRows>(qk, mk, v, i, p, n, valid,
-                                              top_k, segments, c, raw, s);
-  }
-  return launch_dtype<float, kRows>(qk, mk, v, i, p, n, valid, top_k,
-                                    segments, c, raw, s);
+  return topk::with_width(ck, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    return is_bf16 ? launch_dtype<__nv_bfloat16, kW, kRows>(
+                         qk, mk, v, i, p, n, valid, ck, top_k, segments, c,
+                         raw, s)
+                   : launch_dtype<float, kW, kRows>(qk, mk, v, i, p, n, valid,
+                                                    ck, top_k, segments, c,
+                                                    raw, s);
+  });
 }
 
 }  // namespace walk

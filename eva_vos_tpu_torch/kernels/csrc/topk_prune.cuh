@@ -19,9 +19,11 @@
 //  1. score_tile: the block scores its tile into shared memory as ords
 //     (16 x 2,048 x 4 B = 128 KB; the id is the column): bf16 keys on the
 //     tensor cores (mma.sync m16n8k16, the 16 queries one A tile held in
-//     registers, keys staged by cp.async; score_block_mma), fp32 keys on the
-//     FP32 units (score_block in topk_common.cuh), whose products stay exact
-//     where TF32 would round them.
+//     registers, CKP / 16 k16 steps, keys staged by cp.async in pieces of
+//     at most 64 channels; score_block_mma), fp32 keys on the FP32 units
+//     (score_block in topk_common.cuh), whose products stay exact where
+//     TF32 would round them.  Keys are CKP wide (topk_common.cuh's padded
+//     widths, a template argument); the true width ck sets the scale.
 //  2. select_row: warp w selects query w's row:
 //     a. threshold: column c belongs to group c mod G (G = 128, 256 or 512
 //        for k <= 64, 128, 256); a lane reads its columns 16 bytes at a time
@@ -64,8 +66,10 @@
 
 namespace prune {
 
+using topk::KeyScale;
 using topk::kNegInf;
 using topk::load8;
+using topk::with_exact;
 
 using u64 = unsigned long long;
 
@@ -84,12 +88,13 @@ constexpr int kRowStride = kBlk + 8;
 constexpr int kCap = 512;
 constexpr unsigned kFull = 0xffffffffu;
 // bf16 scoring: warp w scores tokens [128 w, 128 w + 128) of the block in
-// chunks of 8 (one n8 tile), staged through a ring of kStages chunks
+// chunks of 8 (one n8 tile), each staged as CKP / 64 pieces of 64 channels
+// (one piece of CKP < 64), through a ring of kStages pieces
 constexpr int kWarpToks = kBlk / kQT;        // 128
 constexpr int kChunk = 8;
 constexpr int kChunks = kWarpToks / kChunk;  // 16
 constexpr int kStages = 4;
-constexpr int kStageElems = kChunk * 64;     // bf16 of one staged chunk
+constexpr int kStageElems = kChunk * 64;     // bf16 of the largest piece
 
 // the candidate lists' space holds the staging ring until the tile is scored
 static_assert(sizeof(__nv_bfloat16) * kQT * kStages * kStageElems <=
@@ -171,108 +176,155 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two bf16 of query q's key (channels c, c + 1), 0 past the last query.
+// Two bf16 of query q's key (channels c, c + 1; keys `width` wide), 0 past
+// the last query.
 __device__ __forceinline__ unsigned query_pair(const __nv_bfloat16* qk, int q,
-                                               int n, int c) {
+                                               int n, int c, int width) {
   return q < n ? *reinterpret_cast<const unsigned*>(
-                     qk + static_cast<size_t>(q) * 64 + c)
+                     qk + static_cast<size_t>(q) * width + c)
                : 0u;
 }
 
+// A staged piece of bf16 keys CKP wide: kW = min(CKP, 64) channels of 8
+// token rows (kW * 2 bytes a row, kUnits 16-byte units), kPieces a key.
+// Unit u of row r sits at unit u ^ ((r kUnits / 8) mod kUnits) of the row:
+// u ^ r for 128-byte rows, u ^ (r / 2) mod 4 for 64-byte ones, u ^ (r / 4)
+// mod 2 for 32-byte ones, the TMA's 128-, 64- and 32-byte swizzles.  Eight
+// rows' unit u then lie in eight distinct 16-byte bank groups (ldmatrix's
+// reads), and eight consecutive units of the piece cover 128 contiguous
+// bytes (cp.async's stores).
+template <int CKP>
+struct Piece {
+  static constexpr int kW = CKP < 64 ? CKP : 64;
+  static constexpr int kPieces = CKP / kW;
+  static constexpr int kUnits = kW / 8;
+  static constexpr int kElems = 8 * kW;  // bf16 of a piece of 8 rows
+  __device__ static __forceinline__ int at(int u, int r) {
+    return u ^ ((r * kUnits / 8) & (kUnits - 1));
+  }
+};
+
 // The bf16 counterpart of score_block: the ords of queries [q0, q0 + 16)
-// against tokens [lo, lo + kBlk) on the tensor cores.  The queries are one
-// m16 tile, held as A fragments for the whole block (four k16 steps of
-// CK = 64).  Warp w's 128 tokens pass through its ring `stage` of kStages
-// chunks of 8 token rows (128 B each, 16-byte unit u of row r at u ^ r, so
+// against tokens [lo, lo + kBlk) on the tensor cores, keys CKP wide.  The
+// queries are one m16 tile, held as A fragments for the whole block (CKP /
+// 16 k16 steps).  Warp w's 128 tokens pass through its ring `stage` of
+// kStages pieces (Piece: 8 token rows of at most 64 channels, swizzled so
 // that both cp.async's stores and ldmatrix's reads hit distinct banks);
-// kStages - 1 chunks are in flight while one is scored.  A chunk is one n8
-// tile: two ldmatrix.x4 give its B fragments, four mma.sync its 16 x 8
-// dot products (bf16 products are exact in fp32, summed in the tensor
-// core's order); |k|^2 is an fp32 sum of the staged bf16 values (four lanes
-// a token, 16 channels each).  Ends with a barrier.
+// kStages - 1 pieces are in flight while one is scored.  A chunk of 8
+// tokens is one n8 tile: per piece one or two ldmatrix.x4 give its B
+// fragments and one to four mma.sync add its 16 x 8 dot products into the
+// chunk's accumulators (bf16 products are exact in fp32, summed in the
+// tensor core's order); |k|^2 is an fp32 sum of the staged bf16 values
+// (four lanes a token).  sc scales by the true width.  Ends with a barrier.
+template <int CKP>
 __device__ __forceinline__ void score_block_mma(const __nv_bfloat16* qk,
                                                 const __nv_bfloat16* mk,
                                                 int n, int q0, int lo, int hi,
+                                                const KeyScale& sc,
                                                 unsigned* tile,
                                                 __nv_bfloat16* stage) {
+  using P = Piece<CKP>;
+  constexpr int kSteps = P::kW / 16;  // k16 steps of a piece
+  constexpr int kUnitsLane = P::kUnits >= 4 ? P::kUnits / 4 : 1;  // |k|^2
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int quad = lane & 3;
-  unsigned a[4][4];
+  unsigned a[CKP / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < CKP / 16; ++kk) {
     const int c = 16 * kk + 2 * quad;
-    a[kk][0] = query_pair(qk, q0 + (lane >> 2), n, c);
-    a[kk][1] = query_pair(qk, q0 + (lane >> 2) + 8, n, c);
-    a[kk][2] = query_pair(qk, q0 + (lane >> 2), n, c + 8);
-    a[kk][3] = query_pair(qk, q0 + (lane >> 2) + 8, n, c + 8);
+    a[kk][0] = query_pair(qk, q0 + (lane >> 2), n, c, CKP);
+    a[kk][1] = query_pair(qk, q0 + (lane >> 2) + 8, n, c, CKP);
+    a[kk][2] = query_pair(qk, q0 + (lane >> 2), n, c + 8, CKP);
+    a[kk][3] = query_pair(qk, q0 + (lane >> 2) + 8, n, c + 8, CKP);
   }
   const int col0 = warp * kWarpToks;  // the warp's first column
   stage += warp * kStages * kStageElems;
-  auto issue = [&](int ch) {
-    if (ch < kChunks) {
-      __nv_bfloat16* buf = stage + (ch % kStages) * kStageElems;
+  // piece i: chunk i / kPieces, channels [kW (i % kPieces), + kW)
+  auto issue = [&](int i) {
+    if (i < kChunks * P::kPieces) {
+      __nv_bfloat16* buf = stage + (i % kStages) * kStageElems;
+      const int tok0 = lo + col0 + (i / P::kPieces) * kChunk;
+      const int c0 = (i % P::kPieces) * P::kW;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int row = (lane >> 3) + 4 * j;
-        const int unit = lane & 7;
-        const int tok = lo + col0 + ch * kChunk + row;
+      for (int e = lane; e < 8 * P::kUnits; e += 32) {
+        const int row = e / P::kUnits;
+        const int unit = e % P::kUnits;
+        const int tok = tok0 + row;
         const bool live = tok < hi;
-        cp_async16(buf + row * 64 + ((unit ^ row) << 3),
-                   live ? mk + static_cast<size_t>(tok) * 64 + unit * 8 : mk,
+        cp_async16(buf + row * P::kW + (P::at(unit, row) << 3),
+                   live ? mk + static_cast<size_t>(tok) * CKP + c0 + unit * 8
+                        : mk,
                    live ? 16 : 0);
       }
     }
-    cp_async_commit();  // an empty group past the last chunk
+    cp_async_commit();  // an empty group past the last piece
   };
 #pragma unroll
-  for (int ch = 0; ch < kStages - 1; ++ch) issue(ch);
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
   for (int ch = 0; ch < kChunks; ++ch) {
-    issue(ch + kStages - 1);
-    cp_async_wait<kStages - 1>();
-    __syncwarp();
-    const __nv_bfloat16* buf = stage + (ch % kStages) * kStageElems;
-    unsigned b[8];
-    const int r = lane & 7;  // the row this lane addresses for ldmatrix
-    ldmatrix_x4(b, buf + r * 64 + (((lane >> 3) ^ r) << 3));
-    ldmatrix_x4(b + 4, buf + r * 64 + ((((lane >> 3) + 4) ^ r) << 3));
     float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_bf16(d, a[kk], b[2 * kk], b[2 * kk + 1]);
-    // |k|^2: lane 4 t + u sums units 2 u, 2 u + 1 of row t
     float sq = 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v[8];
-      load8(buf + (lane >> 2) * 64 + (((2 * quad + h) ^ (lane >> 2)) << 3), v);
+    for (int p = 0; p < P::kPieces; ++p) {
+      const int i = ch * P::kPieces + p;
+      issue(i + kStages - 1);
+      cp_async_wait<kStages - 1>();
+      __syncwarp();
+      const __nv_bfloat16* buf = stage + (i % kStages) * kStageElems;
+      unsigned b[8];
+      const int r = lane & 7;  // the row this lane addresses for ldmatrix
+      ldmatrix_x4(b, buf + r * P::kW + (P::at((lane >> 3) % P::kUnits, r)
+                                        << 3));
+      if constexpr (P::kUnits == 8) {
+        ldmatrix_x4(b + 4, buf + r * P::kW + (P::at((lane >> 3) + 4, r) << 3));
+      }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sq = fmaf(v[i], v[i], sq);
+      for (int kk = 0; kk < kSteps; ++kk) {
+        mma_bf16(d, a[p * kSteps + kk], b[2 * kk], b[2 * kk + 1]);
+      }
+      // |k|^2: lane 4 t + quad sums units kUnitsLane quad + h of row t
+#pragma unroll
+      for (int h = 0; h < kUnitsLane; ++h) {
+        const int u = kUnitsLane * quad + h;
+        if (u < P::kUnits) {
+          const int t = lane >> 2;
+          float v[8];
+          load8(buf + t * P::kW + (P::at(u, t) << 3), v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sq = fmaf(v[e], v[e], sq);
+        }
+      }
+      __syncwarp();  // the ring slot is free for the next issue
     }
     sq += __shfl_xor_sync(kFull, sq, 1);
     sq += __shfl_xor_sync(kFull, sq, 2);
-    __syncwarp();  // the ring slot is free for the next issue
     // this lane's columns: rows 2 quad, 2 quad + 1 of the chunk
     const float sq0 = __shfl_sync(kFull, sq, 8 * quad);
     const float sq1 = __shfl_sync(kFull, sq, 8 * quad + 4);
     const int col = col0 + ch * kChunk + 2 * quad;
     const bool live0 = lo + col < hi;
     const bool live1 = lo + col + 1 < hi;
-    const float scale = sqrtf(64.f);
+    with_exact(sc, [&](auto exact) {
+      constexpr bool kExact = decltype(exact)::value;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v0 = (2.f * d[2 * h] - sq0) / scale + 0.f;
-      const float v1 = (2.f * d[2 * h + 1] - sq1) / scale + 0.f;
-      *reinterpret_cast<uint2*>(tile + ((lane >> 2) + 8 * h) * kRowStride +
-                                col) =
-          make_uint2(live0 ? ord_of(v0) : 0u, live1 ? ord_of(v1) : 0u);
-    }
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = sc.template div<kExact>(2.f * d[2 * h] - sq0) + 0.f;
+        const float v1 =
+            sc.template div<kExact>(2.f * d[2 * h + 1] - sq1) + 0.f;
+        *reinterpret_cast<uint2*>(tile + ((lane >> 2) + 8 * h) * kRowStride +
+                                  col) =
+            make_uint2(live0 ? ord_of(v0) : 0u, live1 ? ord_of(v1) : 0u);
+      }
+    });
   }
   __syncthreads();
 }
 
 // Shared memory of a block: [kQT][kRowStride] ords, then the bf16 staging
-// ring [kQT warps][kStages chunks] or, once the tile is scored, the candidate
-// lists [kQT][kCap], then the fp32 queries [kQT][CK].
+// ring [kQT warps][kStages pieces] or, once the tile is scored, the
+// candidate lists [kQT][kCap], then the fp32 queries [kQT][CKP]: 211.6 KB
+// at CKP = 256, within an SM's 227 KB.
 struct BlockSmem {
   unsigned* tile;
   u64* cand;
@@ -287,27 +339,29 @@ __device__ __forceinline__ BlockSmem carve_block(unsigned* smem) {
   return s;
 }
 
-inline size_t block_smem_bytes(int ck) {
+constexpr size_t block_smem_bytes(int ckp) {
   return sizeof(unsigned) * static_cast<size_t>(kQT) * kRowStride +
          sizeof(u64) * static_cast<size_t>(kQT) * kCap +
-         sizeof(float) * static_cast<size_t>(kQT) * ck;
+         sizeof(float) * static_cast<size_t>(kQT) * ckp;
 }
+static_assert(block_smem_bytes(topk::kMaxKeyWidth) <= 232448,
+              "a block's shared memory fits an SM at the widest keys");
 
 // The ords of queries [q0, q0 + kQT) against tokens [lo, lo + kBlk) (dead
-// at or past hi) into s.tile.  Every thread of the block calls it; it ends
-// with a barrier.
-template <typename T, int CK>
+// at or past hi) into s.tile, keys CKP wide, scaled for keys ck wide.
+// Every thread of the block calls it; it ends with a barrier.
+template <typename T, int CKP>
 __device__ __forceinline__ void score_tile(const T* qk, const T* mk, int n,
-                                           int q0, int lo, int hi,
+                                           int q0, int lo, int hi, int ck,
                                            const BlockSmem& s) {
+  const KeyScale sc(ck);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    static_assert(CK == 64, "score_block_mma takes four k16 steps");
-    score_block_mma(qk, mk, n, q0, lo, hi, s.tile,
-                    reinterpret_cast<__nv_bfloat16*>(s.cand));
+    score_block_mma<CKP>(qk, mk, n, q0, lo, hi, sc, s.tile,
+                         reinterpret_cast<__nv_bfloat16*>(s.cand));
   } else {
     OrdTile tile{s.tile};
-    topk::score_block<T, CK, kQT, kBlk, kThreads1>(qk, mk, n, q0, lo, hi,
-                                                   s.s_q, tile);
+    topk::score_block<T, CKP, kQT, kBlk, kThreads1>(qk, mk, n, q0, lo, hi, sc,
+                                                    s.s_q, tile);
   }
 }
 
@@ -720,17 +774,17 @@ __device__ __forceinline__ void write_row(const u64* keys, float* ov, int* oi,
   }
 }
 
-template <typename T, int CK>
+template <typename T, int CKP>
 __global__ void __launch_bounds__(kThreads1, 1)
 topk_rows_block_kernel(const T* __restrict__ qk, const T* __restrict__ mk,
                        u64* __restrict__ part, float* __restrict__ out_v,
-                       int* __restrict__ out_i, int n, int valid, int top_k,
-                       int raw, int* __restrict__ escalations) {
+                       int* __restrict__ out_i, int n, int valid, int ck,
+                       int top_k, int raw, int* __restrict__ escalations) {
   extern __shared__ __align__(16) unsigned rows_smem[];
   const BlockSmem s = carve_block(rows_smem);
   const int q0 = blockIdx.x * kQT;
   const int lo = blockIdx.y * kBlk;
-  score_tile<T, CK>(qk, mk, n, q0, lo, min(lo + kBlk, valid), s);
+  score_tile<T, CKP>(qk, mk, n, q0, lo, min(lo + kBlk, valid), ck, s);
 
   const int warp = threadIdx.x >> 5;
   const int q = q0 + warp;
@@ -804,21 +858,21 @@ topk_rows_merge_kernel(const u64* __restrict__ part, float* __restrict__ out_v,
   if (!kRaw) topk::warp_softmax_row(ov, top_k);
 }
 
-// Both kernels of the row-output stage on `stream`; part may be null when
-// n_live = 1.  Returns a cudaError_t code.
-template <typename T, int CK>
+// Both kernels of the row-output stage on `stream`, keys CKP wide (true
+// width ck); part may be null when n_live = 1.  Returns a cudaError_t code.
+template <typename T, int CKP>
 int launch_rows(const void* qk, const void* mk, u64* part, float* out_v,
-                int* out_i, int n, int valid, int top_k, int n_live, int raw,
-                int* escalations, cudaStream_t stream) {
-  const size_t smem = block_smem_bytes(CK);
+                int* out_i, int n, int valid, int ck, int top_k, int n_live,
+                int raw, int* escalations, cudaStream_t stream) {
+  const size_t smem = block_smem_bytes(CKP);
   cudaError_t err = cudaFuncSetAttribute(
-      topk_rows_block_kernel<T, CK>,
+      topk_rows_block_kernel<T, CKP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kQT - 1) / kQT, n_live);
-  topk_rows_block_kernel<T, CK><<<grid, kThreads1, smem, stream>>>(
+  topk_rows_block_kernel<T, CKP><<<grid, kThreads1, smem, stream>>>(
       static_cast<const T*>(qk), static_cast<const T*>(mk), part, out_v, out_i,
-      n, valid, top_k, raw, escalations);
+      n, valid, ck, top_k, raw, escalations);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_live == 1) return static_cast<int>(err);
   const size_t merge_smem = sizeof(int) * kRowMergeWarps * n_live;
@@ -832,18 +886,20 @@ int launch_rows(const void* qk, const void* mk, u64* part, float* out_v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The C interface of memory_topk_sort.cu and memory_topk_grid.cu, for keys
-// CK wide: checks the arguments and launches the row-output stage.  (A
-// template, as the kernels are, so that a file that includes this header
+// The C interface of memory_topk_sort.cu and memory_topk_grid.cu: keys
+// topk::padded_width(ck) wide (ck in [1, 256]: the wrapper pads them),
+// scaled for ck; checks the arguments and launches the row-output stage.
+// (A template, as the kernels are, so that a file that includes this header
 // and calls it not compiles none of them.)
-template <int CK>
+template <int kUnused = 0>
 int launch_rows_checked(const void* qk, const void* mk, void* part,
                         void* out_v, void* out_i, int n, int valid, int ck,
                         int top_k, int n_live, int raw, int is_bf16,
                         void* stream, void* escalations) {
   if (n <= 0) return 0;
-  if (ck != CK || top_k < 1 || top_k > 256 || n_live > kMaxRowLists ||
-      n_live != live_blocks(valid) || (n_live > 1 && part == nullptr)) {
+  if (ck < 1 || ck > topk::kMaxKeyWidth || top_k < 1 || top_k > 256 ||
+      n_live > kMaxRowLists || n_live != live_blocks(valid) ||
+      (n_live > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   u64* p = static_cast<u64*>(part);
@@ -851,12 +907,14 @@ int launch_rows_checked(const void* qk, const void* mk, void* part,
   int* oi = static_cast<int*>(out_i);
   int* e = static_cast<int*>(escalations);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_rows<__nv_bfloat16, CK>(qk, mk, p, ov, oi, n, valid, top_k,
-                                          n_live, raw, e, s);
-  }
-  return launch_rows<float, CK>(qk, mk, p, ov, oi, n, valid, top_k, n_live,
-                                raw, e, s);
+  return topk::with_width(ck, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    return is_bf16 ? launch_rows<__nv_bfloat16, kW>(qk, mk, p, ov, oi, n,
+                                                    valid, ck, top_k, n_live,
+                                                    raw, e, s)
+                   : launch_rows<float, kW>(qk, mk, p, ov, oi, n, valid, ck,
+                                            top_k, n_live, raw, e, s);
+  });
 }
 
 }  // namespace prune

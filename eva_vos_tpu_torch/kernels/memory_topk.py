@@ -44,7 +44,10 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
 Each source note says what bounds its kernel and how its design answers that.
 
 Contract of the transposed selectors (the first three): qk [N, CK],
-mk [M, CK] in fp32 or bf16 (the kernels take CK = 64) ->
+mk [M, CK] in fp32 or bf16, 1 <= CK <= MAX_KEY_WIDTH (:func:`key_width`: the
+kernels are built for the widths KEY_WIDTHS; keys of another width are
+zero-padded to the next one, which is exact, and counted in
+``<wrapper>.pads``) ->
 (vals [top_k, N] fp32 raw scores in descending order, idx [top_k, N] int32),
 over tokens < ``valid_tokens``, ties to the lowest id.  Where
 valid_tokens < top_k the trailing slots hold -1e30 with unspecified (but
@@ -71,7 +74,8 @@ from ..ops.memory_attention import (memory_affinity_topk, softmax_weights,
                                     topk_scores)
 from . import build
 
-_CK = 64  # the STCN key width, the one the kernels are built for
+KEY_WIDTHS = build.KEY_WIDTHS  # topk_common.cuh's padded widths CKP
+MAX_KEY_WIDTH = KEY_WIDTHS[-1]  # topk_common.cuh's kMaxKeyWidth
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SELECT_BLOCK = 2048  # bank tokens per block of the block selections
 _MAX_LISTS = 2048     # memory_topk.cu's kMaxLists: bank blocks it merges
@@ -91,8 +95,29 @@ def topk_select_plain(qk, mk, valid_tokens, top_k: int):
     return vals.T.contiguous(), idx.T.to(torch.int32).contiguous()
 
 
-def _bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
-    lib = build.load(name)
+def key_width(ck: int) -> tuple:
+    """Keys ``ck`` wide -> (CKP, pad): the width of KEY_WIDTHS the kernels
+    take them at, the least one at or above ``ck``, and the zero channels
+    the wrappers append (0 at an instantiated width).  Above MAX_KEY_WIDTH
+    (or below 1) raises ValueError naming the cap."""
+    if not 1 <= ck <= MAX_KEY_WIDTH:
+        raise ValueError(f"keys {ck} wide: the selection kernels take widths "
+                         f"1 to {MAX_KEY_WIDTH} (the cap)")
+    ckp = next(w for w in KEY_WIDTHS if w >= ck)
+    return ckp, ckp - ck
+
+
+def pad_keys(x: torch.Tensor, ckp: int) -> torch.Tensor:
+    """Keys [..., CK] with zero channels appended up to ``ckp``: each dot
+    product and |k|^2 stays exactly what it was (a product with 0 adds 0),
+    so the selection at the true width's scale is unchanged."""
+    return torch.nn.functional.pad(x, (0, ckp - x.shape[-1])).contiguous()
+
+
+def _bind(library: str, fn: str, argtypes) -> ctypes.CDLL:
+    """``build.load(library)`` with its function ``fn`` bound; a selection's
+    library is ``<name>@<CKP>``, one for each padded key width."""
+    lib = build.load(library)
     getattr(lib, fn).argtypes = argtypes
     getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -102,8 +127,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _bind("memory_topk", "memory_topk_launch",
+def _lib(ckp: int) -> ctypes.CDLL:
+    lib = _bind(f"memory_topk@{ckp}", "memory_topk_launch",
                 [_P] * 4 + [_I] * 5 + [_P] * 3)
     lib.memory_topk_chunked_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P] * 5
     lib.memory_topk_chunked_launch.restype = ctypes.c_int
@@ -114,20 +139,22 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _iter_lib() -> ctypes.CDLL:
-    return _bind("memory_topk_iter", "memory_topk_iter_launch",
+def _iter_lib(ckp: int) -> ctypes.CDLL:
+    return _bind(f"memory_topk_iter@{ckp}", "memory_topk_iter_launch",
                  [_P] * 5 + [_I] * 5 + [_P, _I, _I, _P])
 
 
 @functools.lru_cache(maxsize=None)
-def _rows_lib(name: str) -> ctypes.CDLL:
+def _rows_lib(name: str, ckp: int) -> ctypes.CDLL:
     """The library of a selection of the row-output stage (sort, grid)."""
-    return _bind(name, f"{name}_launch", [_P] * 5 + [_I] * 7 + [_P, _P])
+    return _bind(f"{name}@{ckp}", f"{name}_launch",
+                 [_P] * 5 + [_I] * 7 + [_P, _P])
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_lib() -> ctypes.CDLL:
-    return _bind("memory_topk_resident", "memory_topk_resident_launch",
+def _resident_lib(ckp: int) -> ctypes.CDLL:
+    return _bind(f"memory_topk_resident@{ckp}",
+                 "memory_topk_resident_launch",
                  [_P] * 5 + [_I] * 5 + [_P, _I, _P])
 
 
@@ -136,32 +163,41 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_operand(name, x, dtype=None):
+def _check_operand(name, x, dtype=None, layout=True):
+    """A CUDA tensor of a kernel's dtype (``dtype`` when given), and with
+    ``layout`` contiguous and 16-byte aligned (a padded copy is both)."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES or (dtype is not None and x.dtype != dtype):
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    if layout and (not x.is_contiguous() or x.data_ptr() % 16):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_selection(qk, mk, valid_tokens, top_k: int,
-                     most: int | None = PRUNED_MAX_K) -> int:
+def _check_selection(wrapper, qk, mk, valid_tokens, top_k: int,
+                     most: int | None = PRUNED_MAX_K):
     """Check a kernel's operands, top_k in [1, min(M, most)] (``most``
-    None: [1, M]); returns the number of valid tokens."""
-    n, ck = qk.shape
-    m = mk.shape[0]
-    _check_operand("qk", qk)
-    _check_operand("mk", mk, qk.dtype)
-    if ck != _CK or mk.shape[1] != _CK:
-        raise ValueError(f"keys must be {_CK} wide: qk {tuple(qk.shape)}, "
+    None: [1, M]) and the keys' width (:func:`key_width`) -> (qk, mk at the
+    kernel's width: zero-padded where CK is not one of KEY_WIDTHS, which
+    adds one to ``wrapper.pads``; the number of valid tokens; the true CK,
+    which the kernel's scale takes)."""
+    m, ck = mk.shape[0], qk.shape[1]
+    if mk.shape[1] != ck:
+        raise ValueError(f"keys of two widths: qk {tuple(qk.shape)}, "
                          f"mk {tuple(mk.shape)}")
+    ckp, pad = key_width(ck)
+    _check_operand("qk", qk, layout=not pad)
+    _check_operand("mk", mk, qk.dtype, layout=not pad)
     if most is None and not 0 < top_k <= m:
         raise ValueError(f"top_k={top_k} must be in [1, M={m}]")
     if most is not None and not 0 < top_k <= min(m, most):
         raise ValueError(f"top_k={top_k} must be in [1, min(M={m}, {most})]"
                          f": this selection takes at most {most}")
-    return m if valid_tokens is None else max(0, min(int(valid_tokens), m))
+    valid = m if valid_tokens is None else max(0, min(int(valid_tokens), m))
+    if pad:  # the kernels read tokens below valid only
+        qk, mk = pad_keys(qk, ckp), pad_keys(mk[:max(valid, 1)], ckp)
+        wrapper.pads += 1
+    return qk, mk, valid, ck
 
 
 def _check_counter(counter, qk, name="escalations"):
@@ -241,15 +277,16 @@ def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     if top_k > PRUNED_MAX_K:
         return _topk_select_radix(qk, mk, valid_tokens, top_k, escalations,
                                   scorings)
-    valid = _check_selection(qk, mk, valid_tokens, top_k)
+    qk, mk, valid, ck = _check_selection(topk_select, qk, mk, valid_tokens,
+                                         top_k)
     _check_counter(escalations, qk)
     _check_counter(scorings, qk, "scorings")
     part = _block_lists(qk, _check_lists(valid, _MAX_LISTS), top_k)
     vals, idx = _transposed_outputs(qk, top_k)
-    lib = _lib()
+    lib = _lib(qk.shape[1])
     status = lib.memory_topk_launch(
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        qk.shape[0], valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk),
+        qk.shape[0], valid, ck, top_k, _DTYPES[qk.dtype], _stream(qk),
         _ptr(part), _ptr(escalations))
     build.check("memory_topk", lib, status)
     topk_select.launches += 1
@@ -270,7 +307,8 @@ def _topk_select_radix(qk, mk, valid_tokens, top_k: int, escalations,
     query up to RADIX_ROW_SORT keys; above, chunks with merge passes above
     RADIX_SORT_CHUNK keys) and the transposed write, kernels of
     ``csrc/memory_topk.cu``."""
-    valid = _check_selection(qk, mk, valid_tokens, top_k, most=None)
+    qk, mk, valid, ck = _check_selection(topk_select, qk, mk, valid_tokens,
+                                         top_k, most=None)
     _check_counter(escalations, qk)
     _check_counter(scorings, qk, "scorings")
     n, kk, cap = qk.shape[0], min(top_k, valid), radix_cap(valid, top_k)
@@ -278,8 +316,8 @@ def _topk_select_radix(qk, mk, valid_tokens, top_k: int, escalations,
     keys = norms = meta = cand = keys2 = hist = None
     if kk:
         keys = torch.empty((n, kk), dtype=torch.int64, device=dev)
-        norms = torch.empty(-(-valid // 8) * 8, dtype=torch.float32,
-                            device=dev)
+        norms = torch.empty(-(-valid // RADIX_NORMS_PAD) * RADIX_NORMS_PAD,
+                            dtype=torch.float32, device=dev)
         meta = torch.empty((n, 2), dtype=torch.int32, device=dev)
         if kk < valid:
             cand = torch.empty((n, cap), dtype=torch.int64, device=dev)
@@ -289,10 +327,10 @@ def _topk_select_radix(qk, mk, valid_tokens, top_k: int, escalations,
         if kk > RADIX_SORT_CHUNK:
             keys2 = torch.empty_like(keys)
     vals, idx = _transposed_outputs(qk, top_k)
-    lib = _lib()
+    lib = _lib(qk.shape[1])
     status = lib.memory_topk_radix_launch(
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(), n,
-        valid, _CK, top_k, _DTYPES[qk.dtype], _stream(qk), _ptr(keys),
+        valid, ck, top_k, _DTYPES[qk.dtype], _stream(qk), _ptr(keys),
         _ptr(keys2), _ptr(cand), _ptr(meta), _ptr(norms), _ptr(hist),
         _ptr(escalations), _ptr(scorings), cap)
     build.check("memory_topk", lib, status)
@@ -315,7 +353,8 @@ def topk_select_chunked(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     rows that the floor emptied."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
-    valid = _check_selection(qk, mk, valid_tokens, top_k)
+    qk, mk, valid, ck = _check_selection(topk_select_chunked, qk, mk,
+                                         valid_tokens, top_k)
     _check_counter(escalations, qk)
     _check_counter(floored_rows, qk, "floored_rows")
     n, n_live = qk.shape[0], _check_lists(valid, _MAX_LISTS)
@@ -323,10 +362,10 @@ def topk_select_chunked(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     floor = (torch.empty(n, dtype=torch.int64, device=qk.device)
              if n_live > 1 and not no_skip else None)
     vals, idx = _transposed_outputs(qk, top_k)
-    lib = _lib()
+    lib = _lib(qk.shape[1])
     status = lib.memory_topk_chunked_launch(
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(), n,
-        valid, _CK, top_k, int(bool(no_skip)), _DTYPES[qk.dtype], _stream(qk),
+        valid, ck, top_k, int(bool(no_skip)), _DTYPES[qk.dtype], _stream(qk),
         _ptr(part), _ptr(floor), _ptr(escalations), _ptr(floored_rows))
     build.check("memory_topk", lib, status)
     topk_select_chunked.launches += 1
@@ -345,16 +384,17 @@ def topk_select_resident(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     them), summed over queries and segments."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
-    valid = _check_selection(qk, mk, valid_tokens, top_k)
+    qk, mk, valid, ck = _check_selection(topk_select_resident, qk, mk,
+                                         valid_tokens, top_k)
     _check_counter(compactions, qk, "compactions")
     n = qk.shape[0]
     segments = resident_segments(n, valid, top_k, _sm_count(qk.device))
     part = _block_lists(qk, segments, top_k)
     vals, idx = _transposed_outputs(qk, top_k)
-    lib = _resident_lib()
+    lib = _resident_lib(qk.shape[1])
     status = lib.memory_topk_resident_launch(
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        _ptr(part), n, valid, _CK, top_k, segments, _ptr(compactions),
+        _ptr(part), n, valid, ck, top_k, segments, _ptr(compactions),
         _DTYPES[qk.dtype], _stream(qk))
     build.check("memory_topk_resident", lib, status)
     topk_select_resident.launches += 1
@@ -381,36 +421,38 @@ def topk_select_iter(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     :func:`topk_select_resident`."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
-    valid = _check_selection(qk, mk, valid_tokens, top_k)
+    qk, mk, valid, ck = _check_selection(topk_select_iter, qk, mk,
+                                         valid_tokens, top_k)
     _check_counter(compactions, qk, "compactions")
     n = qk.shape[0]
     segments = iter_segments(n, valid, top_k, _sm_count(qk.device))
     part = _block_lists(qk, segments, top_k)
     out_v, out_i = _row_outputs(qk, top_k)
-    lib = _iter_lib()
+    lib = _iter_lib(qk.shape[1])
     status = lib.memory_topk_iter_launch(
         qk.data_ptr(), mk.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        _ptr(part), n, valid, _CK, top_k, segments, _ptr(compactions),
+        _ptr(part), n, valid, ck, top_k, segments, _ptr(compactions),
         int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk))
     build.check("memory_topk_iter", lib, status)
     topk_select_iter.launches += 1
     return out_v, out_i
 
 
-def _select_rows(name: str, qk, mk, valid_tokens, top_k: int,
+def _select_rows(name: str, wrapper, qk, mk, valid_tokens, top_k: int,
                  return_raw: bool, escalations):
     """Launch library ``name``'s selection of the row-output stage (the sort
-    and grid kernels, ``csrc/topk_prune.cuh``) -> (out_v, out_i)
-    [N, top_k]."""
-    valid = _check_selection(qk, mk, valid_tokens, top_k)
+    and grid kernels, ``csrc/topk_prune.cuh``) for ``wrapper`` -> (out_v,
+    out_i) [N, top_k]."""
+    qk, mk, valid, ck = _check_selection(wrapper, qk, mk, valid_tokens,
+                                         top_k)
     _check_counter(escalations, qk)
     n_live = _check_lists(valid, _MAX_ROW_LISTS)
     part = _block_lists(qk, n_live, top_k)
     out_v, out_i = _row_outputs(qk, top_k)
-    lib = _rows_lib(name)
+    lib = _rows_lib(name, qk.shape[1])
     status = getattr(lib, f"{name}_launch")(
         qk.data_ptr(), mk.data_ptr(), _ptr(part), out_v.data_ptr(),
-        out_i.data_ptr(), qk.shape[0], valid, _CK, top_k, n_live,
+        out_i.data_ptr(), qk.shape[0], valid, ck, top_k, n_live,
         int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk),
         _ptr(escalations))
     build.check(name, lib, status)
@@ -429,8 +471,8 @@ def topk_select_sort(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     overflowed the kernel's candidate list and took its exact bisection."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
-    out = _select_rows("memory_topk_sort", qk, mk, valid_tokens, top_k,
-                       return_raw, escalations)
+    out = _select_rows("memory_topk_sort", topk_select_sort, qk, mk,
+                       valid_tokens, top_k, return_raw, escalations)
     topk_select_sort.launches += 1
     return out
 
@@ -447,8 +489,8 @@ def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     int32."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
-    out = _select_rows("memory_topk_grid", qk, mk, valid_tokens, top_k,
-                       return_raw, escalations)
+    out = _select_rows("memory_topk_grid", topk_select_grid, qk, mk,
+                       valid_tokens, top_k, return_raw, escalations)
     topk_select_grid.launches += 1
     return out
 
@@ -520,10 +562,11 @@ DEAD_KEY = -2 ** 63  # the kernels' key 0 (sort_keys' shift): an empty slot
 # bits, then ~id): (shift, width) from the top, five of RADIX_BITS, then 9
 RADIX_BITS = 11
 RADIX_DIGITS = tuple((53 - 11 * i, RADIX_BITS) for i in range(5)) + ((0, 9),)
-RADIX_ROUND = 65528  # memory_topk.cu's kRRound: tokens a tile's 16-bit
+RADIX_ROUND = 65520  # memory_topk.cu's kRRound: tokens a tile's 16-bit
 #                      histograms count before they go to RADIX_HIST_BINS-bin
 #                      32-bit ones in device memory
 RADIX_HIST_BINS = 2 ** RADIX_BITS
+RADIX_NORMS_PAD = 16  # memory_topk.cu's kNormsPad: the norms' length unit
 
 
 class RadixBins(NamedTuple):
@@ -790,6 +833,7 @@ def resident_rows(keys: torch.Tensor, valid: int, top_k: int,
 for _fn in (topk_select, topk_select_chunked, topk_select_resident,
             topk_select_grid, topk_select_iter, topk_select_sort):
     _fn.launches = 0
+    _fn.pads = 0  # calls whose keys were zero-padded to a KEY_WIDTHS width
 
 # the transposed selectors by the JAX package's method names
 SELECTORS = {"tournament": topk_select, "chunked": topk_select_chunked,

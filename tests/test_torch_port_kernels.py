@@ -1115,3 +1115,86 @@ def test_topk_select_large_k_past_round(cuda, dtype, valid, top_k):
     vals, idx = topk_select(qk, mk, valid, top_k)
     pv, pi = topk_select_plain(qk, mk, valid, top_k + 1)
     _assert_same_selection(vals.T, idx.T, pv.T, pi.T, 1e-4)
+
+
+# key widths: each selection kernel (transposed, raw scores) and the wrapper
+# that counts its launches and pads
+def _rows_transposed(select):
+    def transposed(qk, mk, valid, top_k):
+        vals, idx = select(qk, mk, valid, top_k, return_raw=True)
+        return vals.T, idx.T
+    return transposed
+
+
+WIDTH_SELECTORS = {
+    "tournament": (topk_select, topk_select),
+    "chunked": (topk_select_chunked, topk_select_chunked),
+    "resident": (topk_select_resident, topk_select_resident),
+    "grid": (_grid_transposed, topk_select_grid),
+    "iterative": (_rows_transposed(topk_select_iter), topk_select_iter),
+    "sort": (_rows_transposed(topk_select_sort), topk_select_sort)}
+# #1 at top_k 50 and 512 (its radix select), the others at 50
+WIDTH_CASES = [(m, 50) for m in WIDTH_SELECTORS] + [("tournament", 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,top_k", WIDTH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ck", [16, 24, 128, 256])
+def test_selection_kernels_at_key_widths(cuda, method, top_k, dtype, ck):
+    """Keys of the widths the kernels are built for (16, 128, 256) and of
+    one they take zero-padded (24, to 32, counted in ``pads``): the plain
+    selection at that width, on three bank blocks.  Scores are sums of CK
+    products in another order than the plain version's: atol 1e-4 up to
+    CK = 64, scaled with CK / 64 above."""
+    fn, counted = WIDTH_SELECTORS[method]
+    g = torch.Generator(device=cuda).manual_seed(ck + top_k)
+    qk = torch.randn((300, ck), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((5000, ck), generator=g, device=cuda).to(dtype)
+    valid = 4500
+    launches, pads = counted.launches, counted.pads
+    vals, idx = fn(qk, mk, valid, top_k)
+    torch.cuda.synchronize()
+    assert counted.launches == launches + 1
+    assert counted.pads == pads + (ck == 24)
+    pv, pi = topk_select_plain(qk, mk, valid, top_k + 1)
+    _assert_same_selection(vals.T, idx.T, pv.T, pi.T,
+                           1e-4 * max(1, ck // 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(WIDTH_SELECTORS))
+def test_selection_kernels_refuse_keys_past_the_cap(cuda, method):
+    """Keys 300 wide: every kernel's wrapper raises naming the cap, and
+    nothing runs the plain version on the card instead."""
+    fn, counted = WIDTH_SELECTORS[method]
+    qk = torch.randn((64, 300), device=cuda)
+    launches = counted.launches
+    with pytest.raises(ValueError, match="256"):
+        fn(qk, qk, 64, 8)
+    assert counted.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,top_k", WIDTH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ck", [24, 32, 128])
+def test_selection_kernels_divide_as_the_plain_read(cuda, method, top_k,
+                                                    dtype, ck):
+    """Widths whose sqrt is not a power of two (24, padded to 32; 32; 128):
+    each kernel's raw scores are the plain read's quotient
+    (2 q.k - |k|^2) / sqrt(CK) bit for bit, as the CPU divides it
+    (PyTorch's CUDA division by a Python float multiplies by the rounded
+    reciprocal instead, which can land one ulp off).  Integer keys in
+    [-16, 16] make every dot product and |k|^2 exact in any order (bf16
+    holds them, fp32 sums them exactly), so the scale is the one rounding.
+    Ids equal: ties go to the lowest id."""
+    fn, _ = WIDTH_SELECTORS[method]
+    rng = np.random.default_rng(ck + top_k)
+    qk = torch.from_numpy(rng.integers(-16, 17, (300, ck)).astype(np.float32))
+    mk = torch.from_numpy(rng.integers(-16, 17, (5000, ck)).astype(np.float32))
+    valid = 4500
+    vals, idx = fn(qk.to(cuda, dtype), mk.to(cuda, dtype), valid, top_k)
+    pv, pi = topk_select_plain(qk, mk, valid, top_k)
+    assert torch.equal(idx.cpu(), pi)
+    assert torch.equal(vals.cpu().view(torch.int32), pv.view(torch.int32))
