@@ -87,6 +87,25 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    exactly as often as at top_k 50 and no other kernel, LARGE_K_ITERS
    interleaved frame-0 interacts a read; the eval CLI with ``--top-k 512``
    (oracle_mask, 3 rounds) against a direct call (``[large-k ...]`` lines);
+6e. #3-#8 above top_k 256 (every selection on #1's radix select, the row
+   selections with its row epilogue; #3 on #2's large-k kernel): on each
+   of phase 6c's kernel cases (its banks, plain selections and library
+   times), #4 chunked, #5 resident, #6 grid, #7 iterative and #8 sort
+   against the plain selection (``check_selection``'s rule; dead slots
+   (-1e30, 0); the row selections' weights within WEIGHT_ATOL of
+   exp(v - v_0) / sum of their raw scores), launched once a call, timed
+   by CUDA events around back-to-back calls and by kernel from a trace
+   of the route's kernels, beside the bound and 6c's addmm + torch.topk;
+   and at keys LARGE_K_PADDED_CK wide (zero-padded, counted in ``pads``)
+   at fill 12, top_k 512; #3 on #1's picks equal to #2's output bit for
+   bit and to the plain readout, its rows staged the plan's; phase 6's
+   engine at top_k 512 on the resident, chunked / chunked and 'select'
+   reads (a frame-0 interact each against 6c's gather read, within
+   PROB_ATOL / PROB_FRAC; each selection and readout launched as often as
+   #1 and #2 at top_k 50, each call on its large-k route, and a trace
+   showing the route's kernels and none of the k <= 256 designs');
+   ``select_topk`` under all six methods at top_k 512 on the fill-72 bank
+   (``[large-k methods ...]`` and ``[large-k select_topk]`` lines);
 6d. keys of other widths than 64: each selection kernel (#1, #4-#8) at
    CK in KEY_WIDTHS_CK (bf16, top_k 50; 24 is taken zero-padded to 32 and
    counted in the wrapper's ``pads``) on a clustered bank at fill
@@ -195,7 +214,9 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    PROB_ATOL / PROB_FRAC), #1 launched once for every sharded read, the
    untraced interact ms and the collective bytes, and the same at top_k
    LARGE_K_ENGINE (#1's large-k path as the local selection) against the
-   fused engine at that top_k; (b) the same episode in
+   fused engine at that top_k, and one frame-0 interact at that top_k with
+   the resident selection as the local one (#5's large-k route) against
+   the fused engine's; (b) the same episode in
    two processes sharing the card over gloo against (a)'s (each rank's
    bank half of (a)'s, its collective bytes the same on its whole bank and
    on a quarter of it and within 4x ``comm_model_bytes``), the
@@ -209,8 +230,10 @@ Phases, each of which raises on failure (so no failure ends with exit 0):
    result, and each turn's median ms a call;
 13. one JSON line with each kernel's launches (from the engine read that
    runs it, or from phase 5 for the iterative and sort kernels), error,
-   times and bound, and the key widths it ran at (phase 6d), and the
-   large-k paths of #1 and #2 (phase 6c).
+   times and bound, and the key widths it ran at (phase 6d), the
+   large-k paths of #1 and #2 (phase 6c) and the large-k routes of #3-#8
+   (phase 6e: launches from its engine reads, and from its select_topk
+   calls for the iterative and sort selections).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 full results also go to ``chiprun_out/chip_smoke.json``.  Without a CUDA
@@ -335,11 +358,33 @@ LARGE_K_MERGE = (256, 40000, 20000)
 LARGE_K_ENGINE = 512
 LARGE_K_ITERS = 5
 LARGE_K_ROUNDS = 3
-# the large-k path's kernels, as a trace names them
+# the large-k phase of #3-#8 (6e): #4-#8 (LARGE_K_SELECTIONS) and #3 on
+# phase 6c's banks and cases (its plain references and library times), and
+# each selection at keys LARGE_K_PADDED_CK wide (zero-padded) at fill
+# LARGE_K_FP32[0], top_k LARGE_K[0]; phase 6's engine at top_k
+# LARGE_K_ENGINE on the reads of LARGE_K_READS (a frame-0 interact each,
+# untraced, then traced); select_topk's six methods on the fill-72 bank
+LARGE_K_PADDED_CK = 24
+LARGE_K_SELECTIONS = ("memory_topk_chunked", "memory_topk_resident",
+                      "memory_topk_grid", "memory_topk_iter",
+                      "memory_topk_sort")
+# engine_paths() read -> (its selection, its readout kernel or None)
+LARGE_K_READS = {"fused_resident": ("memory_topk_resident", "memory_readout"),
+                 "fused_chunked_chunked": ("memory_topk_chunked",
+                                           "memory_readout_chunked"),
+                 "select": ("memory_topk_grid", None)}
+# the row epilogue's weights against exp(v - v_0) / sum of its own raw
+# scores in PyTorch: fp32 sums of up to 2,048 terms in another order
+WEIGHT_ATOL = 1e-6
+# the large-k path's kernels, as a trace names them (the last two: the
+# transposed write, or the row epilogue of the row selections)
 RADIX_KERNELS = ("topk_key_norms_kernel", "topk_radix_kernel",
                  "topk_cand_select_kernel", "topk_sort_rows_kernel",
                  "topk_sort_chunks_kernel", "topk_rank_merge_kernel",
-                 "topk_keys_t_kernel")
+                 "topk_keys_t_kernel", "topk_keys_rows_kernel")
+# the k <= 256 designs' kernels, which no read above 256 may launch
+SMALL_K_KERNELS = ("topk_prune_block_kernel", "topk_resident_kernel",
+                   "topk_rows_block_kernel", "readout_stage_kernel")
 # the wrappers' pad of keys to a built width (memory_topk.pad_keys: a fill
 # and a copy for qk and for the valid keys), as a trace names its kernels
 PAD_KERNELS = {"FillFunctor": 2, "copy_kernel": 2}
@@ -421,6 +466,12 @@ REPLACES = {"memory_topk": "eva_vos_tpu/kernels/memory_topk.py:380",
 # source and TPU kernel they share
 LARGE_K_LINE = {"memory_topk_radix": "memory_topk",
                 "memory_readout_large_k": "memory_readout"}
+# the large-k routes of #3-#8 (phase 6e), by the kernel whose TPU kernel
+# they replace above 256; their source: the kernel they launch
+LARGE_K_ROUTES = {f"{name}_radix": name for name in LARGE_K_SELECTIONS}
+LARGE_K_ROUTES["memory_readout_chunked_large_k"] = "memory_readout_chunked"
+ROUTE_SOURCES = dict.fromkeys(LARGE_K_SELECTIONS, "memory_topk.cu")
+ROUTE_SOURCES["memory_readout_chunked"] = "memory_readout.cu"
 
 
 def fail(msg: str):
@@ -1042,7 +1093,7 @@ def entry_phase(torch, results):
         counts = {k: c.launches for k, c in counters.items()}
         if counts[name] <= 0 or sum(counts.values()) != counts[name]:
             fail(f"select_topk({kwargs}) launched {counts}, not {name}")
-        launches[name] = counts[name]
+        launches[name] = counts.get(name, 0)
         vals, raw_idx = select_topk(mk, qk, TOP_K, valid, return_raw=True,
                                     **kwargs)
         if not torch.equal(raw_idx, idx) or not torch.allclose(
@@ -1397,12 +1448,13 @@ def named_ms(torch, fn, per_call: dict, reps: int = 5,
     fail(f"the profiler's traces of {reps} calls hold no {missing}")
 
 
-def radix_launches(kk: int, valid: int) -> dict:
+def radix_launches(kk: int, valid: int, rows: bool = False) -> dict:
     """#1's radix path's kernels (RADIX_KERNELS) -> launches a call, for
     kk = min(top_k, valid) of ``valid`` tokens: the norms and the radix
     select, the candidates' top below the valid tokens, the lists' sort (a
     warp a query up to RADIX_ROW_SORT keys, else chunks and merge passes
-    above RADIX_SORT_CHUNK), the transposed write."""
+    above RADIX_SORT_CHUNK), the transposed write, or with ``rows`` the
+    row epilogue of the row selections."""
     from eva_vos_tpu_torch.kernels.memory_topk import (RADIX_ROW_SORT,
                                                        RADIX_SORT_CHUNK)
 
@@ -1410,14 +1462,16 @@ def radix_launches(kk: int, valid: int) -> dict:
     rows_sort = 0 < kk <= RADIX_ROW_SORT
     return dict(zip(RADIX_KERNELS, (
         int(kk > 0), int(kk > 0), int(0 < kk < valid), int(rows_sort),
-        int(kk > 0 and not rows_sort), merges, 1)))
+        int(kk > 0 and not rows_sort), merges, int(not rows), int(rows))))
 
 
-def large_k_case(torch, q, mk, valid, mv, k, label, rows):
+def large_k_case(torch, q, mk, valid, mv, k, label, rows, shared=None):
     """#1 at top_k ``k`` (> 256: the radix select) against its plain
     version with ``check_selection``'s rule, its dead slots (-1e30, 0),
     and #2 on its picks against the plain readout, both timed beside
-    their plain versions, library calls and bounds."""
+    their plain versions, library calls and bounds.  ``shared`` (a dict)
+    keeps the case's inputs, plain references, outputs and yardsticks
+    under ``label`` for phase 6e."""
     from eva_vos_tpu_torch import kernels as K
     from eva_vos_tpu_torch.kernels import memory_readout as R
     from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
@@ -1513,6 +1567,12 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
               queries=queries, tiles=modes, staged_rows=staged,
               staged_picks=picks, dense_stages=dense)
     rows["readout"].append(ro)
+    if shared is not None:
+        shared[label] = dict(
+            q=q, mk=mk, valid=valid, mv=mv, k=k, ref=(ref_vals, ref_idx),
+            vals=vals, idx=idx, library_ms=sel["library_ms"],
+            plain_ms=sel["plain_ms"], readout_out=out, readout_ref=ref,
+            staged=staged, readout=ro)
     share = f"{picks / staged:.2f}" if staged else "-"
     print(f"[large-k] #2 {label}: max|d|={ro['max_abs_err']:.3g}; device "
           f"{ro['ms']:.4f} ms, {ro['call_ms']:.3f} ms a call, plain "
@@ -1522,10 +1582,11 @@ def large_k_case(torch, q, mk, valid, mv, k, label, rows):
           f"staged row {share}), dense stages {dense}", flush=True)
 
 
-def large_k_kernels(torch):
+def large_k_kernels(torch, shared=None):
     """#1 and #2 above top_k 256 at N = N_QUERIES on the clustered banks
     of FILLS (bf16, each LARGE_K; fp32 at LARGE_K_FP32), and #1's merge
-    passes on LARGE_K_MERGE, checked against the plain selection."""
+    passes on LARGE_K_MERGE, checked against the plain selection; each
+    case kept in ``shared`` (large_k_case)."""
     from eva_vos_tpu_torch import kernels as K
 
     dev = torch.device(DEVICE)
@@ -1540,14 +1601,14 @@ def large_k_kernels(torch):
         for k in LARGE_K:
             large_k_case(torch, qk, mk, valid, mv, k,
                          f"fill{fill}_clustered N={N_QUERIES} top_k={k} bf16",
-                         rows)
+                         rows, shared)
         if fill == max(FILLS):
             rows["k50"] = small_k_beside(torch, qk, mk, valid)
         if fill == LARGE_K_FP32[0]:
             k = LARGE_K_FP32[1]
             large_k_case(torch, qk.float(), mk.float(), valid, mv.float(), k,
                          f"fill{fill}_clustered N={N_QUERIES} top_k={k} fp32",
-                         rows)
+                         rows, shared)
         del mk
     n, m, k = LARGE_K_MERGE
     q = torch.randn((n, CK), generator=gen, device=dev).to(torch.bfloat16)
@@ -1584,13 +1645,15 @@ def small_k_beside(torch, q, mk, valid):
                 split_ms={x: split[x] for x in PRUNED_KERNELS})
 
 
-def large_k_engine(torch, card, base, feats, pad, masks):
+def large_k_engine(torch, card, base, feats, pad, masks, shared=None):
     """Phase 6's engine at top_k LARGE_K_ENGINE: the fused read (#1 and #2
     above 256) against the gather read on a frame-0 interact and on a
     frame-30 interact from the fused frame-0 state; #1 and #2 as often as
     in the same interacts at top_k 50 and no other kernel; LARGE_K_ITERS
     untraced frame-0 interacts a read (fused at LARGE_K_ENGINE, gather at
-    LARGE_K_ENGINE, fused at top_k 50), interleaved."""
+    LARGE_K_ENGINE, fused at top_k 50), interleaved.  ``shared`` keeps the
+    gather read's frame-0 probabilities and the launches at top_k 50 for
+    phase 6e."""
     from eva_vos_tpu_torch.engine import InferenceEngine, pad_mask
 
     cfg = base.config._replace(top_k=LARGE_K_ENGINE)
@@ -1649,6 +1712,11 @@ def large_k_engine(torch, card, base, feats, pad, masks):
             fail(f"[large-k engine] frame {frame}: fused vs gather {frac:.2e}"
                  f" of probabilities off by > {PROB_ATOL}")
         checks[frame] = dict(share_off=frac, max_abs_dp=dmax)
+    if shared is not None:
+        shared["engine"] = dict(gather_prob=out0["gather"].prob,
+                                k50=counts0["fused_k50"],
+                                gather_ms=statistics.median(walls["gather"])
+                                * 1e3)
     ms = {k: sorted(1e3 * x for x in v) for k, v in walls.items()}
     print(f"[large-k engine] top_k {LARGE_K_ENGINE}: fused vs gather "
           f"frame 0 max|dp|={checks[0]['max_abs_dp']:.3g} share > "
@@ -1746,13 +1814,16 @@ def large_k_cli(torch, card, images, masks):
         tmp.cleanup()
 
 
-def large_k_phase(torch, results, card, base, feats, pad, images, masks):
-    """Phase 6c: the default read above top_k 256 (kernels, engine, CLI).
-    Returns the large-k kernels' launches on the engine's fused interacts
-    (the warm-up and the timed ones at frame 0, one at frame 30)."""
+def large_k_phase(torch, results, card, base, feats, pad, images, masks,
+                  shared=None):
+    """Phase 6c: the default read above top_k 256 (kernels, engine, CLI);
+    its cases kept in ``shared`` for phase 6e.  Returns the large-k
+    kernels' launches on the engine's fused interacts (the warm-up and the
+    timed ones at frame 0, one at frame 30)."""
     phase_start = time.perf_counter()
-    out = large_k_kernels(torch)
-    out["engine"] = large_k_engine(torch, card, base, feats, pad, masks)
+    out = large_k_kernels(torch, shared)
+    out["engine"] = large_k_engine(torch, card, base, feats, pad, masks,
+                                   shared)
     out["cli"] = large_k_cli(torch, card, images, masks)
     out["phase_s"] = time.perf_counter() - phase_start
     print(f"[large-k] the phase took {out['phase_s']:.1f} s on {card}",
@@ -1764,6 +1835,350 @@ def large_k_phase(torch, results, card, base, feats, pad, images, masks):
             + e["launches30"]["memory_topk"],
             "memory_readout_large_k": runs * e["launches0"]["memory_readout"]
             + e["launches30"]["memory_readout"]}
+
+
+def large_k_method_case(torch, name, q, mk, valid, k, ref, library_ms,
+                        label, rows):
+    """Selection ``name`` of LARGE_K_SELECTIONS at top_k ``k`` (> 256: the
+    radix select) on one bank: launched once and padded once where the
+    keys' width is not built, its raw scores and ids held to the plain
+    selection ``ref`` by ``check_selection``'s rule, its dead slots
+    (-1e30, 0); a row selection's weights (its row epilogue's) within
+    WEIGHT_ATOL of exp(v - v_0) / sum of its raw scores, with the same
+    ids.  Timed by CUDA events around back-to-back calls (``stream_ms``;
+    the weights, for a row selection) and by kernel from a trace of the
+    route's kernels (``width_launches``: a kernel it does not launch fails
+    the trace), beside its bound and ``library_ms``."""
+    from eva_vos_tpu_torch.kernels.memory_topk import key_width
+    from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
+
+    fn, counted = width_selectors()[name]
+    ck, fp32, n = q.shape[1], q.dtype == torch.float32, q.shape[0]
+    padded = int(key_width(ck)[1] > 0)
+    launches, pads = counted.launches, counted.pads
+    vals, idx = fn(q, mk, valid, k)
+    torch.cuda.synchronize()
+    if (counted.launches - launches, counted.pads - pads) != (1, padded):
+        fail(f"[large-k methods] {name} {label}: "
+             f"{counted.launches - launches} launches and "
+             f"{counted.pads - pads} pads, not 1 and {padded}")
+    kk = min(k, valid)
+    err, n_diff = check_selection(torch, vals[:kk], idx[:kk],
+                                  ref[0][:kk + 1], ref[1][:kk + 1],
+                                  f"{name} {label}", kk)
+    if not (bool((vals[kk:] == -1e30).all()) and bool((idx[kk:] == 0).all())):
+        fail(f"[large-k methods] {name} {label}: the slots past the live "
+             f"tokens are not (-1e30, 0)")
+    call = lambda: counted(q, mk, valid, k)  # noqa: E731
+    w_err = None
+    if name in ROW_SELECTIONS:
+        w, widx = call()
+        torch.cuda.synchronize()
+        if not torch.equal(widx, idx.T):
+            fail(f"[large-k methods] {name} {label}: the weights' ids differ"
+                 f" from the raw scores'")
+        w_err = (w - softmax_weights(vals.T)).abs().max().item()
+        if w_err > WEIGHT_ATOL:
+            fail(f"[large-k methods] {name} {label}: weights off "
+                 f"exp(v - v_0) / sum by {w_err}")
+    ms = stream_ms(torch, call)
+    split = named_ms(torch, call, width_launches(
+        name, n, valid, k, bool(padded),
+        torch.cuda.get_device_properties(q.device).multi_processor_count))
+    traced = split.pop("all")
+    bound, by = selection_bound(n, valid, k, fp32, ck)
+    row = dict(kernel=f"{name}_radix", case=label, ck=ck, n=n, valid=valid,
+               top_k=k, dtype="fp32" if fp32 else "bf16", max_abs_err=err,
+               weight_err=w_err, ids_differ=n_diff, dead_slots=k - kk,
+               pads=counted.pads - pads, ms=ms, traced_ms=traced,
+               split_ms=split, bound_ms=bound, bound_by=by,
+               library_ms=library_ms, plain_ms=None)
+    rows.append(row)
+    rows_out = name in ROW_SELECTIONS
+    last = split["topk_keys_rows_kernel" if rows_out else "topk_keys_t_kernel"]
+    print(f"[large-k methods] {name} {label}: max|dv|={err:.3g} ids_differ="
+          f"{n_diff}" + ("" if w_err is None else f" max|dw|={w_err:.3g}")
+          + f"; device {ms:.4f} ms (kernels in a trace {traced:.4f}: radix "
+          f"{split['topk_radix_kernel']:.4f}, "
+          f"{'row epilogue' if rows_out else 'transpose'} {last:.4f}), "
+          f"addmm+torch.topk {library_ms:.3f} ms, bound {bound:.4f} ms "
+          f"({by})", flush=True)
+    return row
+
+
+def large_k_chunked_readout_case(torch, case, label, rows):
+    """#3 (the chunked readout) above 256 on #1's picks of a phase 6c
+    case: launched once, equal bit for bit to #2's output there (the same
+    kernel) and held to the plain readout with 6c's tolerances, its rows
+    staged (``staged_rows``) those of the plan; timed by kernel from a
+    trace and by CUDA events around back-to-back calls, beside 6c's
+    plain and library (``embedding_bag``) times and bound."""
+    from eva_vos_tpu_torch import kernels as K
+
+    mv, vals, idx = case["mv"], case["vals"], case["idx"]
+    staged = torch.zeros(1, dtype=torch.int32, device=mv.device)
+    launches = K.topk_readout_chunked.launches
+    out = K.topk_readout_chunked(mv, vals, idx, staged_rows=staged)
+    torch.cuda.synchronize()
+    if K.topk_readout_chunked.launches != launches + 1:
+        fail(f"[large-k methods] #3 {label}: "
+             f"{K.topk_readout_chunked.launches - launches} launches")
+    ref = case["readout_ref"]
+    if mv.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=FP32_READOUT_ATOL)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   rtol=READOUT_RTOL, atol=READOUT_ATOL)
+    if not torch.equal(out, case["readout_out"]):
+        fail(f"[large-k methods] #3 {label}: differs from #2's output")
+    if int(staged) != case["staged"]:
+        fail(f"[large-k methods] #3 {label}: {int(staged)} rows staged, its "
+             f"plan {case['staged']}")
+    call = lambda: K.topk_readout_chunked(mv, vals, idx)  # noqa: E731
+    two = case["readout"]
+    row = dict(kernel="memory_readout_chunked_large_k", case=label,
+               n=vals.shape[1], top_k=vals.shape[0],
+               max_abs_err=(out.float() - ref.float()).abs().max().item(),
+               ms=named_ms(torch, call, {LARGE_K_READOUT: 1})[
+                   LARGE_K_READOUT],
+               stream_ms=stream_ms(torch, call), plain_ms=two["plain_ms"],
+               library_ms=two["library_ms"], bound_ms=two["bound_ms"],
+               bound_by=two["bound_by"], staged_rows=int(staged))
+    rows.append(row)
+    print(f"[large-k methods] #3 {label}: max|d|={row['max_abs_err']:.3g}, "
+          f"#2's output bit for bit, rows staged {row['staged_rows']} (the "
+          f"plan's); device {row['ms']:.4f} ms ({row['stream_ms']:.4f} ms a "
+          f"call back to back; #2 {two['ms']:.4f}), embedding_bag "
+          f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+
+
+def large_k_method_kernels(torch, shared):
+    """#4-#8 and #3 above 256 on every phase 6c case kept in ``shared``
+    (its bank, plain selection, #1's picks, plain readout and library
+    times), then each selection with keys LARGE_K_PADDED_CK wide at fill
+    LARGE_K_FP32[0], top_k LARGE_K[0] (bf16); the plain rows' time at the
+    head case (fill max(FILLS), top_k LARGE_K[0], bf16)."""
+    from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch.ops.memory_attention import memory_affinity_topk
+
+    rows = dict(selection=[], readout=[])
+    cases = {k: v for k, v in shared.items() if k != "engine"}
+    for label, case in cases.items():
+        for name in LARGE_K_SELECTIONS:
+            large_k_method_case(torch, name, case["q"], case["mk"],
+                                case["valid"], case["k"], case["ref"],
+                                case["library_ms"], label, rows["selection"])
+        large_k_chunked_readout_case(torch, case, label, rows["readout"])
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(LARGE_K_PADDED_CK)
+    fill, k = LARGE_K_FP32[0], LARGE_K[0]
+    q = torch.randn((N_QUERIES, LARGE_K_PADDED_CK), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    mk, valid = make_bank(torch, gen, q, fill, clustered=True)
+    ref = K.topk_select_plain(q, mk, valid, k + 1)
+    library_ms = min(library_times(torch, mk[:valid], q, ref[0], k).values())
+    label = (f"fill{fill}_clustered N={N_QUERIES} top_k={k} bf16 "
+             f"CK={LARGE_K_PADDED_CK}")
+    for name in LARGE_K_SELECTIONS:
+        large_k_method_case(torch, name, q, mk, valid, k, ref, library_ms,
+                            label, rows["selection"])
+    head_label = f"fill{max(FILLS)}_clustered N={N_QUERIES} top_k={LARGE_K[0]} bf16"
+    head = cases[head_label]
+    rows_plain = cuda_ms(torch, lambda: memory_affinity_topk(
+        head["mk"], head["q"], head["k"], head["valid"]), 3)
+    for row in rows["selection"]:
+        if row["case"] == head_label:
+            row["plain_ms"] = (rows_plain if row["kernel"].removesuffix(
+                "_radix") in ROW_SELECTIONS else head["plain_ms"])
+    return rows
+
+
+def kernel_trace_counts(torch, run, names, want: dict,
+                        tries: int = 3) -> dict:
+    """Kernels whose name holds each of ``names`` in a ``torch.profiler``
+    trace of ``run()`` -> their launches; the trace is taken again, up to
+    ``tries`` times, until the counts of ``want`` are its values (a trace
+    may drop launches: PERF.md §7).  Each trace first runs a few small
+    kernels of its own, which no name matches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad = torch.zeros(1024, device=DEVICE)
+            for _ in range(8):
+                pad.add_(1.0)
+            run()
+            torch.cuda.synchronize()
+        found = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        counts = {k: sum(k in n for n in found) for k in names}
+        if all(counts[k] == v for k, v in want.items()):
+            break
+    return counts
+
+
+def large_k_method_engine(torch, card, base, feats, pad, masks, shared):
+    """Phase 6's engine at top_k LARGE_K_ENGINE on each read of
+    LARGE_K_READS, a frame-0 interact each from a fresh state: its
+    probabilities against phase 6c's gather read (PROB_ATOL / PROB_FRAC),
+    its selection and readout launched as often as the default read's at
+    top_k 50 and no other kernel, each call on its large-k route (the
+    wrappers' radix select and large-k readout counted as they are
+    called); then the same interact traced: the route's kernels as often,
+    and none of the k <= 256 designs' (SMALL_K_KERNELS)."""
+    from eva_vos_tpu_torch.engine import InferenceEngine, pad_mask
+    from eva_vos_tpu_torch.kernels import memory_readout as R
+    from eva_vos_tpu_torch.kernels import memory_topk as MT
+
+    k50, want_prob = shared["engine"]["k50"], shared["engine"]["gather_prob"]
+    state0 = base.init_state(feats, 1)
+    m0 = pad_mask(masks[:1, 0], pad, device=DEVICE)
+    counters = launch_counters()
+    routes = dict(radix=0, readout=0)
+    radix, readout = MT._topk_select_radix, R._readout
+
+    def counted_radix(*args, **kwargs):
+        routes["radix"] += 1
+        return radix(*args, **kwargs)
+
+    def counted_readout(wrapper, mv, vals, idx, counts):
+        routes["readout"] += int(vals.shape[0] > MT.PRUNED_MAX_K)
+        return readout(wrapper, mv, vals, idx, counts)
+
+    out = {}
+    paths = engine_paths()
+    for read, (sel, ro) in LARGE_K_READS.items():
+        fields, _ = paths[read]
+        engine = InferenceEngine(base.stcn, base.fusion, base.config._replace(
+            top_k=LARGE_K_ENGINE, **fields), device=DEVICE)
+        for c in counters.values():
+            c.launches = 0
+        routes.update(radix=0, readout=0)
+        MT._topk_select_radix, R._readout = counted_radix, counted_readout
+        try:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            got = engine.interact(state0, feats, m0, 0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - start) * 1e3
+        finally:
+            MT._topk_select_radix, R._readout = radix, readout
+        counts = {k: c.launches for k, c in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want[sel] = k50["memory_topk"]
+        if ro:
+            want[ro] = k50["memory_readout"]
+        if counts != want or want[sel] <= 0:
+            fail(f"[large-k methods engine] {read}: launched {counts}, not "
+                 f"{want}")
+        if routes != dict(radix=want[sel], readout=want[ro] if ro else 0):
+            fail(f"[large-k methods engine] {read}: {routes} calls of the "
+                 f"large-k routes for {want[sel]} selections")
+        if not torch.isfinite(got.prob).all():
+            fail(f"[large-k methods engine] {read}: non-finite "
+                 f"probabilities")
+        frac, dmax = prob_off(torch, got.prob, want_prob)
+        if frac > PROB_FRAC:
+            fail(f"[large-k methods engine] {read}: {frac:.2e} of "
+                 f"probabilities off the gather read's by > {PROB_ATOL}")
+        del got
+        last = ("topk_keys_rows_kernel" if sel in ROW_SELECTIONS
+                else "topk_keys_t_kernel")
+        route = {"topk_radix_kernel": want[sel], last: want[sel],
+                 LARGE_K_READOUT: want[ro] if ro else 0}
+        traced = kernel_trace_counts(
+            torch, lambda: engine.interact(state0, feats, m0, 0),
+            ("topk_radix_kernel", "topk_keys_t_kernel",
+             "topk_keys_rows_kernel", LARGE_K_READOUT) + SMALL_K_KERNELS,
+            dict(route, **dict.fromkeys(SMALL_K_KERNELS, 0)))
+        if any(traced[k] != v for k, v in route.items()) or any(
+                traced[x] for x in SMALL_K_KERNELS):
+            fail(f"[large-k methods engine] {read}: the trace holds "
+                 f"{traced}, the route {route}")
+        out[read] = dict(ms=wall, launches={k: v for k, v in counts.items()
+                                            if v},
+                         routes=dict(routes), trace=traced, share_off=frac,
+                         max_abs_dp=dmax)
+        print(f"[large-k methods engine] {read} at top_k {LARGE_K_ENGINE}: "
+              f"frame-0 interact {wall:.1f} ms untraced (the gather read "
+              f"{shared['engine']['gather_ms']:.1f} ms in 6c); against the "
+              f"gather read max|dp|={dmax:.3g}, share > {PROB_ATOL}: "
+              f"{frac:.2e}; launches {out[read]['launches']} (top_k 50: "
+              f"#1 x {k50['memory_topk']}, #2 x {k50['memory_readout']}), "
+              f"large-k routes {routes}; traced "
+              f"{ {k: v for k, v in traced.items() if v} }; on {card}",
+              flush=True)
+        del engine
+    return out
+
+
+def large_k_select_topk(torch, case) -> dict:
+    """``select_topk`` under each of its six methods at the case's top_k
+    (> 256) on its bank: the raw scores and ids held to the plain selection
+    by ``check_selection``'s rule, the weights within WEIGHT_ATOL of
+    exp(v - v_0) / sum of the raw scores, with the same ids; each method's
+    wrapper launched once a call and no other.  Returns the launches."""
+    from eva_vos_tpu_torch import kernels as K
+    from eva_vos_tpu_torch.ops.memory_attention import softmax_weights
+
+    q, mk, valid, k = case["q"], case["mk"], case["valid"], case["k"]
+    names = dict(iterative="memory_topk_iter", sort="memory_topk_sort",
+                 grid="memory_topk_grid", tournament="memory_topk",
+                 chunked="memory_topk_chunked",
+                 resident="memory_topk_resident")
+    counters = launch_counters()
+    launches = {}
+    for method, name in names.items():
+        for c in counters.values():
+            c.launches = 0
+        raw, idx = K.select_topk(mk, q, k, valid, method=method,
+                                 return_raw=True)
+        w, widx = K.select_topk(mk, q, k, valid, method=method)
+        torch.cuda.synchronize()
+        counts = {x: c.launches for x, c in counters.items() if c.launches}
+        if counts != {name: 2}:
+            fail(f"[large-k select_topk] {method}: launched {counts}")
+        err, n_diff = check_selection(torch, raw.T, idx.T, *case["ref"],
+                                      f"select_topk {method}", k)
+        w_err = (w - softmax_weights(raw)).abs().max().item()
+        if not torch.equal(widx, idx) or w_err > WEIGHT_ATOL:
+            fail(f"[large-k select_topk] {method}: weights off by {w_err} "
+                 f"or ids apart from the raw call's")
+        launches[name] = counts.get(name, 0)
+        print(f"[large-k select_topk] method={method} top_k={k} valid="
+              f"{valid}: max|dv|={err:.3g} ids_differ={n_diff} max|dw|="
+              f"{w_err:.3g}; {counts}", flush=True)
+    return launches
+
+
+def large_k_methods_phase(torch, results, card, base, feats, pad, masks,
+                          shared):
+    """Phase 6e: #3-#8 above top_k 256 (kernels on phase 6c's cases, the
+    engine's other reads, select_topk).  Returns the launches of each
+    large-k route of LARGE_K_ROUTES on the main path: the engine's
+    interacts for the reads' kernels, select_topk's calls for the
+    iterative and sort selections (no engine read runs them)."""
+    phase_start = time.perf_counter()
+    out = large_k_method_kernels(torch, shared)
+    out["engine"] = large_k_method_engine(torch, card, base, feats, pad,
+                                          masks, shared)
+    out["select_topk"] = large_k_select_topk(torch, shared[
+        f"fill{max(FILLS)}_clustered N={N_QUERIES} top_k={LARGE_K[0]} bf16"])
+    out["phase_s"] = time.perf_counter() - phase_start
+    print(f"[large-k methods] the phase took {out['phase_s']:.1f} s on "
+          f"{card}", flush=True)
+    results["large_k_methods"] = out
+    e = out["engine"]
+    reads = {sel: read for read, (sel, _) in LARGE_K_READS.items()}
+    launches = {f"{name}_radix": (e[reads[name]]["launches"].get(name, 0)
+                                  if name in reads
+                                  else out["select_topk"][name])
+                for name in LARGE_K_SELECTIONS}
+    launches["memory_readout_chunked_large_k"] = e["fused_chunked_chunked"][
+        "launches"].get("memory_readout_chunked", 0)
+    return launches
 
 
 def width_selectors():
@@ -1802,7 +2217,7 @@ def width_launches(name: str, n: int, valid: int, k: int, padded: bool,
         _SELECT_BLOCK, PRUNED_MAX_K, iter_segments, resident_segments)
 
     if k > PRUNED_MAX_K:
-        out = radix_launches(min(k, valid), valid)
+        out = radix_launches(min(k, valid), valid, name in ROW_SELECTIONS)
     else:
         block, merge = SPLIT_KERNELS[name]
         segments = {"memory_topk_resident": resident_segments,
@@ -3339,12 +3754,14 @@ def cli_phase(torch, results, card, images, masks):
     results["cli"] = dict(out, phase_s=phase_s)
 
 
-def run_episode(torch, engine, feats, pad, masks, frames=None):
+def run_episode(torch, engine, feats, pad, masks, frames=None,
+                selection=None):
     """Interacts at ``frames`` (PARALLEL_FRAMES by default) from a fresh
     state (donating it), after one untimed warm-up interact at the first
     frame (a group's first collective sets up its communicator); for
-    each, its untraced host ms, the sharded reads it made and #1's
-    launches, the counters zeroed just before it and read just after."""
+    each, its untraced host ms, the sharded reads it made and the
+    launches of ``selection`` (#1's wrapper by default), the counters
+    zeroed just before it and read just after."""
     from eva_vos_tpu_torch import kernels as K
     from eva_vos_tpu_torch.engine import pad_mask
     from eva_vos_tpu_torch.engine import propagation as P
@@ -3361,6 +3778,7 @@ def run_episode(torch, engine, feats, pad, masks, frames=None):
             torch.cuda.synchronize(engine.device)
 
     frames = frames or PARALLEL_FRAMES
+    selection = selection or K.topk_select
     engine.interact(engine.init_state(feats, 1), feats, pad_mask(
         masks[:1, frames[0]], pad, device=engine.device), frames[0],
         donate=True)
@@ -3369,24 +3787,24 @@ def run_episode(torch, engine, feats, pad, masks, frames=None):
     try:
         for idx in frames:
             mask = pad_mask(masks[:1, idx], pad, device=engine.device)
-            reads[0], K.topk_select.launches = 0, 0
+            reads[0], selection.launches = 0, 0
             sync()
             start = time.perf_counter()
             state = engine.interact(state, feats, mask, idx, donate=True)
             sync()
             rows.append(dict(frame=idx, reads=reads[0],
                              ms=(time.perf_counter() - start) * 1e3,
-                             topk_launches=K.topk_select.launches))
+                             topk_launches=selection.launches))
     finally:
         P.sharded_memory_readout = orig
     return state, rows
 
 
 def check_episode(name, rows):
-    """Every sharded read launched #1 once."""
+    """Every sharded read launched its selection once."""
     for r in rows:
         if r["reads"] <= 0 or r["topk_launches"] != r["reads"]:
-            fail(f"{name}: #1 launched {r['topk_launches']} times for "
+            fail(f"{name}: the selection launched {r['topk_launches']} times for "
                  f"{r['reads']} sharded reads at frame {r['frame']}")
 
 
@@ -3693,7 +4111,10 @@ def sharded_large_k(torch, card, engine, mesh, feats, pad, masks) -> dict:
     """(a) at top_k LARGE_K_ENGINE: the sharded engine on ``mesh`` (its
     local selection #1's large-k path) against the fused engine at the
     same top_k over PARALLEL_FRAMES, within PROB_ATOL / PROB_FRAC, #1 once
-    a sharded read."""
+    a sharded read; then one frame-0 interact of the sharded engine with
+    the resident selection as its local selection (#5's large-k route)
+    against the fused engine's, #5 once a sharded read."""
+    from eva_vos_tpu_torch import kernels as K
     from eva_vos_tpu_torch.engine import InferenceEngine
 
     cfg = engine.config._replace(top_k=LARGE_K_ENGINE)
@@ -3716,8 +4137,27 @@ def sharded_large_k(torch, card, engine, mesh, feats, pad, masks) -> dict:
           + f" (untraced); probabilities off the fused engine's by > "
           f"{PROB_ATOL}: {off:.2e} (max |dp| {dmax:.3g}); on {card}",
           flush=True)
+    resident = InferenceEngine(engine.stcn, engine.fusion, cfg._replace(
+        readout_strategy="sharded",
+        kernels=K.KernelConfig(sel_method="resident")), mesh=mesh)
+    fused0, _ = run_episode(torch, fused, feats, pad, masks, frames=(0,))
+    state0, rows0 = run_episode(torch, resident, feats, pad, masks,
+                                frames=(0,), selection=K.topk_select_resident)
+    check_episode(f"[parallel a] top_k {LARGE_K_ENGINE} resident", rows0)
+    off0, dmax0 = prob_off(torch, state0.prob, fused0.prob)
+    if not torch.isfinite(state0.prob).all() or off0 > PROB_FRAC:
+        fail(f"[parallel a] top_k {LARGE_K_ENGINE} resident: {off0:.2e} of "
+             f"probabilities off the fused engine's by > {PROB_ATOL}")
+    print(f"[parallel a] top_k {LARGE_K_ENGINE}, the resident selection "
+          f"(#5's large-k route) local: a frame-0 interact "
+          f"{rows0[0]['ms']:.0f} ms ({rows0[0]['reads']} reads, #5 x "
+          f"{rows0[0]['topk_launches']}); probabilities off the fused "
+          f"engine's by > {PROB_ATOL}: {off0:.2e} (max |dp| {dmax0:.3g}); on "
+          f"{card}", flush=True)
     return dict(top_k=LARGE_K_ENGINE, rounds=rows, fused_rounds=fused_rows,
-                share_off=off, max_abs_dp=dmax)
+                share_off=off, max_abs_dp=dmax,
+                resident=dict(rounds=rows0, share_off=off0,
+                              max_abs_dp=dmax0))
 
 
 def parallel_phase(torch, results, card, engine, images, masks):
@@ -3842,7 +4282,8 @@ def kernels_line(results, launches):
     library time and bound at a 72-slot clustered bank (N = 8100; readouts
     K = 1), its largest error over all cases, and its launches on the engine
     read that runs it (on the entry-point phase for the kernels that no
-    engine read runs); then the large-k paths of #1 and #2 (phase 6c)."""
+    engine read runs); then the large-k paths of #1 and #2 (phase 6c) and
+    the large-k routes of #3-#8 (phase 6e)."""
 
     def widths(name):
         """The key widths the selection ``name`` ran at (phase 6d, and 64
@@ -3871,23 +4312,31 @@ def kernels_line(results, launches):
     def large_k_row(name):
         """A large-k path's entry: its times at the fullest clustered bank
         at top_k LARGE_K[0] in bf16, its largest error over all cases, its
-        launches on phase 6c's fused interacts."""
-        base = LARGE_K_LINE[name]
-        mine = results["large_k"]["selection" if "topk" in name
-                                  else "readout"]
+        launches on phase 6c's fused interacts (#1, #2) or on phase 6e's
+        main path (#3-#8)."""
+        base = LARGE_K_LINE.get(name) or LARGE_K_ROUTES[name]
+        phase = "large_k" if name in LARGE_K_LINE else "large_k_methods"
+        mine = [r for r in results[phase]["selection" if "topk" in name
+                                          else "readout"]
+                if r["kernel"] == name or name in LARGE_K_LINE]
+        source = ROUTE_SOURCES.get(base, SOURCES[base])
         head = next(r for r in mine if r["case"] == (
             f"fill{max(FILLS)}_clustered N={N_QUERIES} top_k={LARGE_K[0]} "
             f"bf16"))
         return {"name": name, "route": "cuda",
-                "source": f"eva_vos_tpu_torch/kernels/csrc/{SOURCES[base]}",
+                "source": f"eva_vos_tpu_torch/kernels/csrc/{source}",
                 "replaces": REPLACES[base], "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "key_widths": widths(name)}
+                "library_ms": head["library_ms"],
+                "key_widths": (sorted({CK} | {r.get("ck", CK) for r in mine})
+                               if phase == "large_k_methods" and "topk" in name
+                               else widths(name))}
 
     return [row(name, results["selection" if "topk" in name else "readout"])
-            for name in REPLACES] + [large_k_row(name) for name in LARGE_K_LINE]
+            for name in REPLACES] + [large_k_row(name) for name in
+                                     (*LARGE_K_LINE, *LARGE_K_ROUTES)]
 
 
 def main() -> int:
@@ -3936,9 +4385,12 @@ def main() -> int:
         torch, results, card)
     launches.update(entry_launches)
     step_phase(torch, results, card)
+    shared = {}
     launches.update(large_k_phase(torch, results, card, engine, feats, pad,
-                                  images, masks))
-    del feats
+                                  images, masks, shared))
+    launches.update(large_k_methods_phase(torch, results, card, engine, feats,
+                                          pad, masks, shared))
+    del feats, shared
     width_phase(torch, results, card, images, masks)
     resize_phase(torch, results)
     policy_phase(torch, results, card, engine, images, masks)

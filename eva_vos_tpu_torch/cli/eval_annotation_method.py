@@ -66,11 +66,10 @@ def build_parser():
     p.add_argument("--metric", default="j_and_f", choices=["j", "j_and_f"])
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
     p.add_argument("--top-k", type=int, default=50,
-                   help="memory tokens a query reads; on CUDA the default "
-                        "read takes any top_k (above the bank's tokens it "
-                        "reads them all), the other kernel reads "
-                        "(EVAVOS_SEL_METHOD / EVAVOS_READOUT_METHOD) take "
-                        "1-256 and raise above it")
+                   help="memory tokens a query reads; on CUDA every read "
+                        "(EVAVOS_SEL_METHOD / EVAVOS_READOUT_METHOD too) "
+                        "takes any top_k, above 256 on the large-k kernels "
+                        "(above the bank's tokens it reads them all)")
     p.add_argument("--mem-freq", type=int, default=5)
     p.add_argument("--fake-sam", action="store_true",
                    help="use the FakeSAM simulator instead of SAM ViT-H")

@@ -20,6 +20,11 @@
 // memory_readout.py:227,247).  With no_skip every chunk of the bank takes
 // its own stages, empty ones included (the readout_noskip ablation); the
 // output is the same, bit for bit.
+//
+// Above top_k 256 (any top_k, as the TPU kernel) the wrapper takes
+// memory_readout.cu's readout_large_k_kernel instead: the same idea (each
+// distinct row staged once per query tile), built for lists of any length,
+// whose note gives its design; no_skip has no counterpart there.
 
 #include "readout_common.cuh"
 

@@ -9,7 +9,8 @@
 // _kernel_tournament, reached through tournament_topk_t: the default read's
 // selection.  memory_topk_chunked_launch replaces _kernel_tournament_chunked,
 // reached through chunked_topk_t: the chunked read's selection, the same
-// function read newest first.  Both run the two kernels below.
+// function read newest first.  Both run the two kernels below up to top_k
+// 256; above, every selection takes the radix select further down.
 //
 // The default selection: pruned bank blocks, merged into [k, N]
 // ------------------------------------------------------------------------
@@ -154,9 +155,34 @@
 //     it at its index plus its rank in the partner run (a binary search;
 //     keys are distinct).
 //  6. topk_keys_t_kernel: 32 x 32 tiles of the sorted keys -> vals / idx
-//     [k, N], coalesced both ways; (-1e30, 0) in the slots from kk.
+//     [k, N], coalesced both ways; (-1e30, 0) in the slots from kk.  Or,
+//     for the row selections (rows = 1 or 2), topk_keys_rows_kernel below.
 // memory_topk.py states the rules for the tests: radix_threshold the digits,
 // each query's final bin and its passes, radix_lists the selection.
+//
+// Every other selection above 256: the radix select with a row epilogue
+// ---------------------------------------------------------------------
+// The TPU kernels _kernel_tournament_chunked, _kernel_resident, _kernel_grid,
+// _kernel_iter and _kernel (memory_topk.py:590, :801, :302, :187, :264)
+// compute the function of _kernel_tournament (the exact top k, ties to the
+// lowest id) with other layouts and walks of the bank, TPU tiling choices,
+// and take any top_k their VMEM estimate admits.  Their CUDA designs for
+// k <= 256 (memory_topk_chunked_launch above, memory_topk_resident.cu,
+// memory_topk_grid.cu, memory_topk_iter.cu, memory_topk_sort.cu) hold a
+// query's list in 512-key buffers, so above 256 every selection takes this
+// radix select: the chunked and resident ones with its transposed write
+// (rows = 0), the grid, iterative and sort ones with rows = 1 (softmax
+// weights) or 2 (raw scores), whose last stage is topk_keys_rows_kernel in
+// place of the transposed write.  It replaces no TPU kernel of its own: it is
+// the row output of those three.  A warp a query reads the query's kk sorted
+// keys (coalesced, 256 bytes a step), sums exp(v - v_0) over them in fp32
+// from the decoded scores, v_0 the first (largest), as the plain
+// softmax_weights and the TPU wrapper (memory_topk.py:1184-1185) do, and
+// writes [N, top_k] weights (or raw scores) and int32 ids; the slots from kk
+// hold weight 0 (raw -1e30) and id 0.  What bounds it: bytes, N kk 8 read
+// (twice: the second read of a 16 KB row hits L1 or L2) and N top_k 8
+// written, 0.08 ms at N = 8,100, k = 2,048 on the card's 3.35 TB/s.
+// memory_topk.py's radix_rows states it.
 
 #include <algorithm>
 
@@ -1253,6 +1279,46 @@ topk_keys_t_kernel(const u64* __restrict__ keys, float* __restrict__ vals,
   }
 }
 
+// Stage 4 of the row selections: sorted keys[n, kk] -> rows out_v / out_i
+// [n, top_k]: the softmax weights exp(v - v_0) / sum (raw = 0) or the raw
+// scores (raw = 1), and the ids; (0 or -1e30, 0) in the slots from kk (with
+// kk = 0 every slot is -1e30, weight 1 / top_k, as the plain softmax gives).
+// A warp a query, as topk_prune.cuh's write_row.
+constexpr int kRowsWarps = 8;
+
+__global__ void __launch_bounds__(32 * kRowsWarps)
+topk_keys_rows_kernel(const u64* __restrict__ keys, float* __restrict__ out_v,
+                      int* __restrict__ out_i, int n, int kk, int top_k,
+                      int raw) {
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kRowsWarps + (threadIdx.x >> 5);
+  if (q >= n) return;  // whole warps
+  const u64* row = keys + static_cast<size_t>(q) * kk;
+  float* ov = out_v + static_cast<size_t>(q) * top_k;
+  int* oi = out_i + static_cast<size_t>(q) * top_k;
+  float v0;
+  int id0;
+  unpack(kk > 0 ? row[0] : 0ull, v0, id0);
+  float z = 0.f;
+  if (!raw) {
+    for (int t = lane; t < top_k; t += 32) {
+      float v;
+      int id;
+      unpack(t < kk ? row[t] : 0ull, v, id);
+      z += expf(v - v0);
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) z += __shfl_xor_sync(kFull, z, off);
+  }
+  for (int t = lane; t < top_k; t += 32) {
+    float v;
+    int id;
+    unpack(t < kk ? row[t] : 0ull, v, id);
+    ov[t] = raw ? v : expf(v - v0) / z;
+    oi[t] = id;
+  }
+}
+
 template <int W>
 cudaError_t launch_sort_chunks(u64* keys, int n, int kk, cudaStream_t stream) {
   const size_t smem = sizeof(u64) * 2 * padded(512 * W);
@@ -1291,7 +1357,8 @@ template <typename T, int CKP>
 int launch_radix(const void* qk, const void* mk, float* vals, int* idx, int n,
                  int valid, int ck, int top_k, u64* keys, u64* keys2,
                  u64* cand, int cap, int2* meta, float* norms, unsigned* hist,
-                 int* escalations, int* scorings, cudaStream_t stream) {
+                 int* escalations, int* scorings, int rows,
+                 cudaStream_t stream) {
   const int kk = std::min(top_k, valid);
   cudaError_t err;
   if (kk > 0) {
@@ -1335,6 +1402,12 @@ int launch_radix(const void* qk, const void* mk, float* vals, int* idx, int n,
       keys = keys2;
       keys2 = t;
     }
+  }
+  if (rows) {
+    topk_keys_rows_kernel<<<(n + kRowsWarps - 1) / kRowsWarps,
+                            32 * kRowsWarps, 0, stream>>>(
+        keys, vals, idx, n, kk, top_k, rows == 2);
+    return static_cast<int>(cudaGetLastError());
   }
   const dim3 tiles((n + kTT - 1) / kTT, (top_k + kTT - 1) / kTT);
   topk_keys_t_kernel<<<tiles, kTT * 8, 0, stream>>>(keys, vals, idx, n, kk,
@@ -1388,18 +1461,21 @@ int memory_topk_chunked_launch(const void* qk, const void* mk, void* vals,
 // escalations: null, or one int32 on the device that counts the queries
 // whose first bin held more than cap keys (they take more scorings of the
 // bank); scorings: null, or one int32 on the device raised (atomicMax) to
-// the most passes over the bank that a query tile took.  Returns a
-// cudaError_t code.
+// the most passes over the bank that a query tile took.  rows: 0 writes
+// vals / idx [top_k, n] (the transposed selections); 1 writes them as rows
+// [n, top_k] of softmax weights, 2 of raw scores (the row selections).
+// Returns a cudaError_t code.
 int memory_topk_radix_launch(const void* qk, const void* mk, void* vals,
                              void* idx, int n, int valid, int ck, int top_k,
                              int is_bf16, void* stream, void* keys,
                              void* keys2, void* cand, void* meta, void* norms,
                              void* hist, void* escalations, void* scorings,
-                             int cap) {
+                             int cap, int rows) {
   if (n <= 0) return 0;
   const int live = std::max(valid, 0);
   const int kk = std::min(top_k, live);
-  if (ck < 1 || ck > topk::kMaxKeyWidth || top_k < 1 ||
+  if (ck < 1 || ck > topk::kMaxKeyWidth || top_k < 1 || rows < 0 ||
+      rows > 2 ||
       (kk > 0 && (keys == nullptr || meta == nullptr || norms == nullptr)) ||
       (kk > kSortChunk && keys2 == nullptr) ||
       (kk < live && (cand == nullptr || cap < 1 || cap > kRMaxCap ||
@@ -1421,10 +1497,10 @@ int memory_topk_radix_launch(const void* qk, const void* mk, void* vals,
     constexpr int kW = decltype(w)::value;
     return is_bf16 ? launch_radix<__nv_bfloat16, kW>(qk, mk, v, i, n, live, ck,
                                                      top_k, k1, k2, c, cap, m,
-                                                     nr, h, e, sc, s)
+                                                     nr, h, e, sc, rows, s)
                    : launch_radix<float, kW>(qk, mk, v, i, n, live, ck, top_k,
                                              k1, k2, c, cap, m, nr, h, e, sc,
-                                             s);
+                                             rows, s);
   });
 }
 

@@ -17,7 +17,10 @@
 // DMAs, blocks past the fill skipped) that carries the running top-k in
 // VMEM; both merge each block's top k into it.  Here the bank blocks are a
 // parallel grid dimension, only blocks below the fill are launched, and the
-// blocks' lists are merged once: one design serves both.
+// blocks' lists are merged once: one design serves both.  Above top_k 256
+// (any top_k up to M, as the TPU kernel) the wrapper takes memory_topk.cu's
+// radix select with its row epilogue (memory_topk_radix_launch, rows = 1
+// or 2) instead.
 //
 // What bounds it: as memory_topk_sort.cu, not the device-memory bytes nor
 // the tensor-core rate (0.12 ms at fill 72, N = 8,100), but the block

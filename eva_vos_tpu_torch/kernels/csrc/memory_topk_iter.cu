@@ -8,7 +8,9 @@
 // id asc), as row-major [N, top_k]: int32 ids and either the softmax weights
 // exp(v - v_0) / sum (fp32) or, with raw = 1, the raw scores.  Slots left
 // over when valid < top_k hold the score -1e30 (weight exactly 0) and id 0.
-// 1 <= top_k <= 256.
+// 1 <= top_k <= 256; above (any top_k up to M, as the TPU kernel) the
+// wrapper takes memory_topk.cu's radix select with its row epilogue
+// (memory_topk_radix_launch, rows = 1 or 2) instead.
 //
 // What bounds it: the resident walk's (resident_walk.cuh), not the
 // device-memory bytes nor the tensor cores (0.12 ms at fill 72,

@@ -5,7 +5,9 @@
 // through resident_topk_t.  Same function and outputs as memory_topk.cu:
 // for every query n the top_k tokens t < valid by (score desc, id asc), as
 // raw scores vals[k, N] and int32 ids idx[k, N]; slots left over when
-// valid < top_k hold (-1e30, id 0).  1 <= top_k <= 256.
+// valid < top_k hold (-1e30, id 0).  1 <= top_k <= 256; above (any top_k
+// up to M, as the TPU kernel) the wrapper takes memory_topk.cu's radix
+// select (memory_topk_radix_launch) instead.
 //
 // What bounds it: not the device-memory bytes (15 MB of bf16 keys at fill
 // 72, read once from HBM) nor the tensor cores (121 GFLOP at fill 72,

@@ -6,7 +6,10 @@
 // outputs as memory_topk_iter.cu: for every query n the top_k memory tokens
 // t < valid by (score desc, id asc), as row-major [N, top_k] int32 ids and
 // softmax weights (or, with raw = 1, raw scores); slots left over when
-// valid < top_k hold the score -1e30 (weight exactly 0) and id 0.
+// valid < top_k hold the score -1e30 (weight exactly 0) and id 0.  Above
+// top_k 256 (any top_k up to M, as the TPU kernel) the wrapper takes
+// memory_topk.cu's radix select with its row epilogue
+// (memory_topk_radix_launch, rows = 1 or 2) instead.
 //
 // What bounds it: not the device-memory bytes nor the tensor-core rate
 // (0.12 ms at fill 72, N = 8,100), but the block's two phases, whose split

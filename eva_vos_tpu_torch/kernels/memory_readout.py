@@ -18,7 +18,8 @@ Above 256 slots :func:`topk_readout` runs ``csrc/memory_readout.cu``'s
 large-k kernel, which stages each distinct row once per tile too and sums
 each tile densely on the tensor cores, sparsely, or as a direct gather:
 :func:`readout_large_k_plain` states its plan (with :func:`large_k_tiles`
-and :func:`large_k_geometry`).  The JAX wrapper's padding and VMEM geometry
+and :func:`large_k_geometry`); :func:`topk_readout_chunked` takes that
+kernel above 256 too.  The JAX wrapper's padding and VMEM geometry
 search have no counterpart: the CUDA kernels take any N and M.
 """
 
@@ -240,9 +241,8 @@ def _chunked_lib() -> ctypes.CDLL:
                  [_P] * 4 + [_I] * 9 + [_P, _P])
 
 
-def _check_readout(mv, vals, idx, most: int | None = None):
-    """Check a readout kernel's operands, top_k in [1, most] (``most``
-    None: any top_k >= 1)."""
+def _check_readout(mv, vals, idx):
+    """Check a readout kernel's operands: any top_k >= 1."""
     _check_operand("mv", mv)
     if mv.shape[2] % 8:
         raise ValueError(f"value width {mv.shape[2]} must be a multiple of 8")
@@ -255,9 +255,6 @@ def _check_readout(mv, vals, idx, most: int | None = None):
     top_k = vals.shape[0]
     if top_k < 1:
         raise ValueError(f"top_k={top_k} must be at least 1")
-    if most is not None and top_k > most:
-        raise ValueError(f"top_k={top_k} must be in [1, {most}]: this "
-                         f"readout takes at most {most}")
 
 
 def topk_readout(mv: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
@@ -272,6 +269,12 @@ def topk_readout(mv: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     dense (nothing up to 256 slots)."""
     if mv.device.type == "cpu":
         return topk_readout_plain(mv, vals, idx)
+    return _readout(topk_readout, mv, vals, idx, counts)
+
+
+def _readout(wrapper, mv, vals, idx, counts):
+    """Launch ``memory_readout_launch`` (the gather up to 256 slots, the
+    large-k kernel above) for ``wrapper``, counted in its ``launches``."""
     _check_readout(mv, vals, idx)
     if counts is not None and (counts.device != mv.device or counts.dtype
                                != torch.int32 or counts.numel() != 2):
@@ -293,7 +296,7 @@ def topk_readout(mv: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
         n_obj, n, m, cv, top_k, queries, slices, _DTYPES[mv.dtype],
         _stream(mv), _ptr(scratch), _ptr(counts))
     build.check("memory_readout", lib, status)
-    topk_readout.launches += 1
+    wrapper.launches += 1
     return out
 
 
@@ -305,13 +308,24 @@ def topk_readout_chunked(mv: torch.Tensor, vals: torch.Tensor,
     each distinct row once, walking the value bank in 1,024-token chunks
     and skipping those no selected id lands in (``no_skip`` visits every
     one, the same output bit for bit).  The contract and plain version of
-    :func:`topk_readout`, top_k in [1, 256].  ``staged_rows``, a CUDA int32
+    :func:`topk_readout`: any top_k >= 1.  ``staged_rows``, a CUDA int32
     tensor of one element, gains the rows the kernel staged
-    (:func:`readout_staged_rows` counts them)."""
+    (:func:`readout_staged_rows` counts them).  Above PRUNED_MAX_K slots it
+    launches :func:`topk_readout`'s large-k kernel, which stages each
+    distinct row once per tile too (:func:`readout_large_k_plain` states
+    it); ``staged_rows`` gains the rows that kernel staged, and
+    ``no_skip`` changes nothing there."""
     if mv.device.type == "cpu":
         return topk_readout_plain(mv, vals, idx)
-    _check_readout(mv, vals, idx, PRUNED_MAX_K)
     _check_counter(staged_rows, mv, "staged_rows")
+    if vals.shape[0] > PRUNED_MAX_K:
+        counts = None if staged_rows is None else torch.zeros(
+            2, dtype=torch.int32, device=mv.device)
+        out = _readout(topk_readout_chunked, mv, vals, idx, counts)
+        if staged_rows is not None:
+            staged_rows += counts[:1]
+        return out
+    _check_readout(mv, vals, idx)
     n_obj, m, cv = mv.shape
     top_k, n = vals.shape
     queries, slices = readout_geometry(n, n_obj, cv, mv.element_size(), top_k,
@@ -345,9 +359,9 @@ def fused_readout(mk, qk, mv, top_k: int, valid_tokens=None,
     kernel, chosen by ``kcfg`` as ``pallas_fused_readout`` chooses them
     (``eva_vos_tpu/kernels/memory_readout.py:369-371, 403-407``): selection
     'tournament' (default), 'chunked' or 'resident'; readout 'grid'
-    (default) or 'chunked'.  An unknown method raises.  On the card the
-    default kernels take any top_k in [1, M]; the other methods take
-    [1, min(M, 256)] and raise above it.
+    (default) or 'chunked'.  An unknown method raises.  On the card every
+    method takes any top_k in [1, M] (above 256 on the large-k routes of
+    :func:`topk_select` and :func:`topk_readout`).
 
     mk [M, CK], qk [N, CK], mv [K, M, CV] -> [K, N, CV] in mv.dtype.
     """

@@ -41,6 +41,17 @@ Counterparts of the selection kernels of ``eva_vos_tpu/kernels/memory_topk.py``:
 * :func:`select_topk` — ``pallas_memory_topk``: a method name to one of them,
   'iterative' by default as there.
 
+Above top_k = 256 (PRUNED_MAX_K) the designs of all but the first hold a
+query's list in 512-key buffers, so every selection takes #1's radix
+select there, as the JAX kernels all compute one function: the transposed
+selectors with its transposed write, the row selectors (grid, iterative,
+sort) with a row epilogue in its place (``topk_keys_rows_kernel``, the
+softmax weights or raw scores as [N, top_k] rows); :func:`radix_rows`
+states it.  There ``escalations`` counts what #1's does (the queries past
+the radix cap), and the counters of the k <= 256 designs do nothing:
+``floored_rows`` and ``no_skip`` (chunked), ``compactions`` (resident,
+iterative); the result is the same function.
+
 Each source note says what bounds its kernel and how its design answers that.
 
 Contract of the transposed selectors (the first three): qk [N, CK],
@@ -51,9 +62,9 @@ zero-padded to the next one, which is exact, and counted in
 (vals [top_k, N] fp32 raw scores in descending order, idx [top_k, N] int32),
 over tokens < ``valid_tokens``, ties to the lowest id.  Where
 valid_tokens < top_k the trailing slots hold -1e30 with unspecified (but
-in-range) ids; their softmax weight is exactly 0.  On the card
-:func:`topk_select` takes top_k in [1, M]; every other selection takes
-[1, min(M, 256)] (PRUNED_MAX_K) and raises above it.  Their plain version is
+in-range) ids; their softmax weight is exactly 0.  On the card every
+selection takes top_k in [1, M], as the JAX kernels do (PRUNED_MAX_K is the
+boundary between the routes, not a cap).  Their plain version is
 :func:`topk_select_plain`.  The row selectors (grid, iterative, sort) return
 the same selection as [N, top_k] softmax weights (or raw scores with
 ``return_raw``) and int32 ids; their plain version is
@@ -80,8 +91,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SELECT_BLOCK = 2048  # bank tokens per block of the block selections
 _MAX_LISTS = 2048     # memory_topk.cu's kMaxLists: bank blocks it merges
 _MAX_ROW_LISTS = 6000  # topk_prune.cuh's kMaxRowLists: the row merge's lists
-PRUNED_MAX_K = 256  # the largest top_k of every selection kernel but the
-#                     default one's large-k path
+PRUNED_MAX_K = 256  # the largest top_k of the k <= 256 designs; above it
+#                     every selection takes the radix select
 RADIX_SORT_CHUNK = 8192  # memory_topk.cu's kSortChunk: keys sorted in shared
 #                          memory; longer lists take merge passes
 RADIX_CAP = 4096  # candidates a query keeps at least (below: valid)
@@ -133,7 +144,7 @@ def _lib(ckp: int) -> ctypes.CDLL:
     lib.memory_topk_chunked_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P] * 5
     lib.memory_topk_chunked_launch.restype = ctypes.c_int
     lib.memory_topk_radix_launch.argtypes = [_P] * 4 + [_I] * 5 + [_P] * 9 + [
-        _I]
+        _I, _I]
     lib.memory_topk_radix_launch.restype = ctypes.c_int
     return lib
 
@@ -174,13 +185,11 @@ def _check_operand(name, x, dtype=None, layout=True):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_selection(wrapper, qk, mk, valid_tokens, top_k: int,
-                     most: int | None = PRUNED_MAX_K):
-    """Check a kernel's operands, top_k in [1, min(M, most)] (``most``
-    None: [1, M]) and the keys' width (:func:`key_width`) -> (qk, mk at the
-    kernel's width: zero-padded where CK is not one of KEY_WIDTHS, which
-    adds one to ``wrapper.pads``; the number of valid tokens; the true CK,
-    which the kernel's scale takes)."""
+def _check_selection(wrapper, qk, mk, valid_tokens, top_k: int):
+    """Check a kernel's operands, top_k in [1, M] and the keys' width
+    (:func:`key_width`) -> (qk, mk at the kernel's width: zero-padded where
+    CK is not one of KEY_WIDTHS, which adds one to ``wrapper.pads``; the
+    number of valid tokens; the true CK, which the kernel's scale takes)."""
     m, ck = mk.shape[0], qk.shape[1]
     if mk.shape[1] != ck:
         raise ValueError(f"keys of two widths: qk {tuple(qk.shape)}, "
@@ -188,11 +197,8 @@ def _check_selection(wrapper, qk, mk, valid_tokens, top_k: int,
     ckp, pad = key_width(ck)
     _check_operand("qk", qk, layout=not pad)
     _check_operand("mk", mk, qk.dtype, layout=not pad)
-    if most is None and not 0 < top_k <= m:
+    if not 0 < top_k <= m:
         raise ValueError(f"top_k={top_k} must be in [1, M={m}]")
-    if most is not None and not 0 < top_k <= min(m, most):
-        raise ValueError(f"top_k={top_k} must be in [1, min(M={m}, {most})]"
-                         f": this selection takes at most {most}")
     valid = m if valid_tokens is None else max(0, min(int(valid_tokens), m))
     if pad:  # the kernels read tokens below valid only
         qk, mk = pad_keys(qk, ckp), pad_keys(mk[:max(valid, 1)], ckp)
@@ -275,8 +281,8 @@ def topk_select(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
     if top_k > PRUNED_MAX_K:
-        return _topk_select_radix(qk, mk, valid_tokens, top_k, escalations,
-                                  scorings)
+        return _topk_select_radix(topk_select, qk, mk, valid_tokens, top_k,
+                                  escalations, scorings)
     qk, mk, valid, ck = _check_selection(topk_select, qk, mk, valid_tokens,
                                          top_k)
     _check_counter(escalations, qk)
@@ -300,15 +306,19 @@ def radix_cap(valid: int, top_k: int) -> int:
     return max(1, min(valid, RADIX_MAX_CAP, max(RADIX_CAP, 4 * top_k)))
 
 
-def _topk_select_radix(qk, mk, valid_tokens, top_k: int, escalations,
-                       scorings):
-    """:func:`topk_select` above PRUNED_MAX_K: the key norms, the radix
-    select, the candidates' top to the lists, the lists' sort (a warp a
-    query up to RADIX_ROW_SORT keys; above, chunks with merge passes above
-    RADIX_SORT_CHUNK keys) and the transposed write, kernels of
-    ``csrc/memory_topk.cu``."""
-    qk, mk, valid, ck = _check_selection(topk_select, qk, mk, valid_tokens,
-                                         top_k, most=None)
+def _topk_select_radix(wrapper, qk, mk, valid_tokens, top_k: int,
+                       escalations=None, scorings=None,
+                       return_raw: bool | None = None):
+    """Every selection above PRUNED_MAX_K, for ``wrapper`` (which counts
+    the launch and the pad): the key norms, the radix select, the
+    candidates' top to the lists, the lists' sort (a warp a query up to
+    RADIX_ROW_SORT keys; above, chunks with merge passes above
+    RADIX_SORT_CHUNK keys), kernels of ``csrc/memory_topk.cu``; then the
+    transposed write (``return_raw`` None: vals, idx [top_k, N]) or the row
+    epilogue (the softmax weights, or the raw scores with ``return_raw``,
+    and the ids as [N, top_k] rows: :func:`radix_rows`)."""
+    qk, mk, valid, ck = _check_selection(wrapper, qk, mk, valid_tokens,
+                                         top_k)
     _check_counter(escalations, qk)
     _check_counter(scorings, qk, "scorings")
     n, kk, cap = qk.shape[0], min(top_k, valid), radix_cap(valid, top_k)
@@ -326,15 +336,20 @@ def _topk_select_radix(qk, mk, valid_tokens, top_k: int, escalations,
                                    device=dev)
         if kk > RADIX_SORT_CHUNK:
             keys2 = torch.empty_like(keys)
-    vals, idx = _transposed_outputs(qk, top_k)
+    if return_raw is None:
+        vals, idx = _transposed_outputs(qk, top_k)
+        rows = 0
+    else:
+        vals, idx = _row_outputs(qk, top_k)
+        rows = 2 if return_raw else 1
     lib = _lib(qk.shape[1])
     status = lib.memory_topk_radix_launch(
         qk.data_ptr(), mk.data_ptr(), vals.data_ptr(), idx.data_ptr(), n,
         valid, ck, top_k, _DTYPES[qk.dtype], _stream(qk), _ptr(keys),
         _ptr(keys2), _ptr(cand), _ptr(meta), _ptr(norms), _ptr(hist),
-        _ptr(escalations), _ptr(scorings), cap)
+        _ptr(escalations), _ptr(scorings), cap, rows)
     build.check("memory_topk", lib, status)
-    topk_select.launches += 1
+    wrapper.launches += 1
     return vals, idx
 
 
@@ -350,9 +365,16 @@ def topk_select_chunked(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     ``sel_notau`` ablation).  Plain version: topk_select_plain.
     ``escalations`` as for :func:`topk_select`; ``floored_rows``, a CUDA
     int32 tensor of one element, gains the number of (query, bank block)
-    rows that the floor emptied."""
+    rows that the floor emptied.  Above PRUNED_MAX_K, any top_k up to M
+    takes :func:`topk_select`'s radix select (the same function, newest
+    first or not); ``escalations`` gains what it gains there, and
+    ``no_skip`` and ``floored_rows`` do nothing."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
+    if top_k > PRUNED_MAX_K:
+        _check_counter(floored_rows, qk, "floored_rows")
+        return _topk_select_radix(topk_select_chunked, qk, mk, valid_tokens,
+                                  top_k, escalations)
     qk, mk, valid, ck = _check_selection(topk_select_chunked, qk, mk,
                                          valid_tokens, top_k)
     _check_counter(escalations, qk)
@@ -381,9 +403,15 @@ def topk_select_resident(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     selection's merge joins; plain: topk_select_plain.  ``compactions``, a
     CUDA int32 tensor of one element, gains the number of compactions of
     candidate buffers during the walks (:func:`resident_lists` counts
-    them), summed over queries and segments."""
+    them), summed over queries and segments.  Above PRUNED_MAX_K, any
+    top_k up to M takes :func:`topk_select`'s radix select (no walk:
+    ``compactions`` is left as it is)."""
     if _on_cpu(qk, mk):
         return topk_select_plain(qk, mk, valid_tokens, top_k)
+    if top_k > PRUNED_MAX_K:
+        _check_counter(compactions, qk, "compactions")
+        return _topk_select_radix(topk_select_resident, qk, mk, valid_tokens,
+                                  top_k)
     qk, mk, valid, ck = _check_selection(topk_select_resident, qk, mk,
                                          valid_tokens, top_k)
     _check_counter(compactions, qk, "compactions")
@@ -418,9 +446,16 @@ def topk_select_iter(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     :func:`iter_segments` segments whose sorted lists a merge joins
     (:func:`resident_rows` states it).  Plain version:
     ``memory_affinity_topk`` / ``topk_scores``.  ``compactions`` as for
-    :func:`topk_select_resident`."""
+    :func:`topk_select_resident`.  Above PRUNED_MAX_K, any top_k up to M
+    takes :func:`topk_select`'s radix select with the row epilogue
+    (:func:`radix_rows` states it; no walk: ``compactions`` is left as it
+    is)."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
+    if top_k > PRUNED_MAX_K:
+        _check_counter(compactions, qk, "compactions")
+        return _topk_select_radix(topk_select_iter, qk, mk, valid_tokens,
+                                  top_k, return_raw=bool(return_raw))
     qk, mk, valid, ck = _check_selection(topk_select_iter, qk, mk,
                                          valid_tokens, top_k)
     _check_counter(compactions, qk, "compactions")
@@ -441,8 +476,12 @@ def topk_select_iter(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
 def _select_rows(name: str, wrapper, qk, mk, valid_tokens, top_k: int,
                  return_raw: bool, escalations):
     """Launch library ``name``'s selection of the row-output stage (the sort
-    and grid kernels, ``csrc/topk_prune.cuh``) for ``wrapper`` -> (out_v,
-    out_i) [N, top_k]."""
+    and grid kernels, ``csrc/topk_prune.cuh``) for ``wrapper``, counted in
+    its ``launches`` -> (out_v, out_i) [N, top_k]; above PRUNED_MAX_K the
+    radix select with the row epilogue (:func:`radix_rows`)."""
+    if top_k > PRUNED_MAX_K:
+        return _topk_select_radix(wrapper, qk, mk, valid_tokens, top_k,
+                                  escalations, return_raw=bool(return_raw))
     qk, mk, valid, ck = _check_selection(wrapper, qk, mk, valid_tokens,
                                          top_k)
     _check_counter(escalations, qk)
@@ -456,6 +495,7 @@ def _select_rows(name: str, wrapper, qk, mk, valid_tokens, top_k: int,
         int(bool(return_raw)), _DTYPES[qk.dtype], _stream(qk),
         _ptr(escalations))
     build.check(name, lib, status)
+    wrapper.launches += 1
     return out_v, out_i
 
 
@@ -468,13 +508,14 @@ def topk_select_sort(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     the rows and no merge runs); outputs and plain version as
     :func:`topk_select_iter`.  ``escalations``, a CUDA int32 tensor of one
     element, gains the number of (query, bank block) rows whose survivors
-    overflowed the kernel's candidate list and took its exact bisection."""
+    overflowed the kernel's candidate list and took its exact bisection.
+    Above PRUNED_MAX_K, any top_k up to M takes :func:`topk_select`'s radix
+    select with the row epilogue (:func:`radix_rows`), and ``escalations``
+    gains what it gains there."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
-    out = _select_rows("memory_topk_sort", topk_select_sort, qk, mk,
-                       valid_tokens, top_k, return_raw, escalations)
-    topk_select_sort.launches += 1
-    return out
+    return _select_rows("memory_topk_sort", topk_select_sort, qk, mk,
+                        valid_tokens, top_k, return_raw, escalations)
 
 
 def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
@@ -484,15 +525,13 @@ def topk_select_grid(qk: torch.Tensor, mk: torch.Tensor, valid_tokens,
     [N, top_k] int32), or the raw scores in place of the weights with
     ``return_raw``: the function of :func:`topk_select_sort`, and on the
     card its device code (the shared row-output stage), with its own
-    library and launch count.  ``escalations`` as there.  Plain version:
-    ``memory_affinity_topk`` (``topk_scores`` for raw scores), ids as
-    int32."""
+    library and launch count; above PRUNED_MAX_K its radix route too.
+    ``escalations`` as there.  Plain version: ``memory_affinity_topk``
+    (``topk_scores`` for raw scores), ids as int32."""
     if _on_cpu(qk, mk):
         return _row_selection_plain(qk, mk, valid_tokens, top_k, return_raw)
-    out = _select_rows("memory_topk_grid", topk_select_grid, qk, mk,
-                       valid_tokens, top_k, return_raw, escalations)
-    topk_select_grid.launches += 1
-    return out
+    return _select_rows("memory_topk_grid", topk_select_grid, qk, mk,
+                        valid_tokens, top_k, return_raw, escalations)
 
 
 SORT_CAPACITY = 512  # memory_topk_sort.cu's kCap: candidates a row keeps
@@ -667,6 +706,21 @@ def radix_lists(keys: torch.Tensor, valid: int, top_k: int,
         lists[:, :kk] = torch.where(taken, live, dead).topk(kk, dim=1).values
     vals, idx = unpack_keys(lists)
     return vals.T.contiguous(), idx.T.contiguous()
+
+
+def radix_rows(keys: torch.Tensor, valid: int, top_k: int,
+               return_raw: bool = False):
+    """Plain statement of the row selections above PRUNED_MAX_K (the radix
+    select with the row epilogue) over keys [N, >= valid]
+    (:func:`sort_keys`) -> (softmax weights exp(v - v_0) / sum, v_0 the
+    first (largest) score, or the raw scores with ``return_raw``,
+    [N, top_k] fp32; ids [N, top_k] int32): :func:`radix_lists` as rows.
+    The slots from kk = min(top_k, valid) hold weight 0 (raw -1e30) and
+    id 0; with kk = 0 every weight is 1 / top_k, as the plain softmax of
+    the -1e30 scores gives."""
+    vals, idx = radix_lists(keys, valid, top_k)
+    vals, idx = vals.T.contiguous(), idx.T.contiguous()
+    return (vals if return_raw else softmax_weights(vals)), idx
 
 
 def floored_lists(keys: torch.Tensor, top_k: int,

@@ -1,17 +1,21 @@
-"""Time #1 and #2 above top_k 256 of a checkout of this repository under
-that checkout's own ``chip_smoke.py`` phase 6c cases, on one NVIDIA GPU.
+"""Time #1-#8 above top_k 256 of a checkout of this repository under
+that checkout's own ``chip_smoke.py`` phase 6c and 6e cases, on one NVIDIA
+GPU.
 
     python3 scripts/torch_port_large_k_compare.py --root DIR --tag _parent
 
 Runs DIR's ``chip_smoke.large_k_kernels`` (#1 and #2 at top_k 512 and
 2,048 on the clustered banks of fills 1, 12 and 72 at N = 8,100 in bf16,
 top_k 512 in fp32 at fill 12, each checked against its plain version and
-timed by kernel beside its library call and bound; #1's merge passes) on
-DIR's ``eva_vos_tpu_torch`` package, so that an older tree, whose wrappers
-may take other arguments, is measured by its own cases.  Run it for two
-trees in turns (A, B, B, A) within one call to compare them.  Prints the
-cases' ``[large-k]`` lines; the results also go to
-``chiprun_out/large_k_compare<--tag>.json``.
+timed by kernel beside its library call and bound; #1's merge passes) and,
+where DIR's script has phase 6e (``large_k_method_kernels``), #3-#8 on the
+same cases (each selection by CUDA events around back-to-back calls and by
+kernel, the chunked readout by kernel, and each selection with keys 24
+wide) on DIR's ``eva_vos_tpu_torch`` package, so that an older tree, whose
+wrappers may take other arguments, is measured by its own cases.  Run it
+for two trees in turns (A, B, B, A) within one call to compare them.
+Prints the cases' ``[large-k]`` and ``[large-k methods]`` lines; the
+results also go to ``chiprun_out/large_k_compare<--tag>.json``.
 """
 
 from __future__ import annotations
@@ -51,7 +55,13 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = smoke.card_line()
     print(f"[card] {card}; package {root}", flush=True)
-    rows = smoke.large_k_kernels(torch)
+    if hasattr(smoke, "large_k_method_kernels"):  # phase 6e: on 6c's cases
+        shared = {}
+        rows = smoke.large_k_kernels(torch, shared)
+        rows["methods"] = smoke.large_k_method_kernels(torch, shared)
+        del shared
+    else:
+        rows = smoke.large_k_kernels(torch)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"large_k_compare{args.tag}.json").write_text(

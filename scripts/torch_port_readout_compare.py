@@ -17,8 +17,9 @@ reads, and counts over the selections that reach the readout the picks and
 the distinct ids per tile of 64 and of 32 queries: the rows a readout that
 stages each distinct row once per tile copies.  ``--top-k`` sets the
 engine's top_k for that count (default ``chip_smoke.TOP_K``); above 256
-only the default read runs (the chunked read takes at most 256), and the
-large-k readout's branch of each 64-query tile is counted too.  Results
+only the default read is counted (every read there runs the same large-k
+readout, and an older tree's chunked read took at most 256), with the
+large-k readout's branch of each 64-query tile.  Results
 also go to ``chiprun_out/readout_compare<--tag>.json``.
 """
 

@@ -963,8 +963,15 @@ def test_topk_readout_large_k(cuda, case):
         assert dense > 0
     if m == 100000:
         assert staged == 0
-    with pytest.raises(ValueError, match="at most 256"):
-        topk_readout_chunked(mv, vals, idx)
+    # the chunked readout (#3) takes the same kernel above 256: the same
+    # output bit for bit, its own launch count, the kernel's rows staged
+    staged_rows = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = topk_readout_chunked.launches
+    for no_skip in (False, True):
+        assert torch.equal(topk_readout_chunked(mv, vals, idx, no_skip,
+                                                staged_rows), out)
+    assert topk_readout_chunked.launches == before + 2
+    assert int(staged_rows) == 2 * staged
 
 
 @pytest.mark.cuda
@@ -987,20 +994,165 @@ def test_fused_readout_large_k(cuda, dtype, top_k):
 @pytest.mark.parametrize("select", ["chunked", "resident", "grid", "iterative",
                                     "sort"])
 def test_other_selections_raise_above_256(cuda, select):
-    """Every selection but the default one keeps [1, min(M, 256)] and names
-    the cap; so do the fused reads on the other kernels."""
-    qk = torch.randn((40, 64), device=cuda).to(torch.bfloat16)
+    """No selection raises above 256 any more (each takes #1's radix select
+    there), nor do the fused reads on the other kernels: top_k 257 and M
+    run and equal the plain read; only top_k past M raises, naming M."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    qk = torch.randn((40, 64), generator=g, device=cuda).to(torch.bfloat16)
+    mk = torch.randn((3000, 64), generator=g, device=cuda).to(torch.bfloat16)
+    mv = torch.randn((1, 3000, 64), generator=g, device=cuda).to(
+        torch.bfloat16)
+    for top_k in (257, 3000):
+        vals, idx = select_topk(mk, qk, top_k, 3000, method=select,
+                                return_raw=True)
+        pv, pi = topk_scores(mk, qk, top_k, 3000)
+        _assert_same_selection(vals, idx, pv, pi.to(torch.int32), 1e-4)
+        for kcfg in (KernelConfig(sel_method=select)
+                     if select in ("chunked", "resident") else KernelConfig(),
+                     KernelConfig(readout_method="chunked")):
+            _assert_readout_close(
+                fused_readout(mk, qk, mv, top_k, 3000, kcfg),
+                fused_readout_plain(mk, qk, mv, top_k, 3000))
+    with pytest.raises(ValueError, match="M=3000"):
+        select_topk(mk, qk, 3001, 3000, method=select)
+
+
+# every selection of #4-#8 above 256 (the radix select: transposed for the
+# chunked and resident ones, the row epilogue for grid, iterative and sort)
+LARGE_K_METHODS = ("iterative", "sort", "grid", "chunked", "chunked_notau",
+                   "resident")
+_TRANSPOSED = {"chunked": topk_select_chunked,
+               "chunked_notau": partial(topk_select_chunked, no_skip=True),
+               "resident": topk_select_resident}
+_COUNTED = dict(COUNTED, resident=topk_select_resident)
+
+
+def _large_k_rows(method, qk, mk, valid, top_k, return_raw=False, **kw):
+    """``method``'s selection as [N, k] rows (raw scores or weights)."""
+    if method in _TRANSPOSED:
+        return _as_rows(_TRANSPOSED[method])(qk, mk, valid, top_k,
+                                             return_raw=return_raw, **kw)
+    return ROW_SELECTORS[method](qk, mk, valid, top_k, return_raw=return_raw,
+                                 **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", LARGE_K_METHODS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", [3000, 1700, 20])
+@pytest.mark.parametrize("top_k", [257, 300, 512, 2048])
+def test_large_k_selections(cuda, method, dtype, valid, top_k):
+    """#4-#8 above 256 against the plain selection: raw scores within 1e-4
+    and ids but at near-ties; the slots from the valid tokens hold -1e30
+    (weight 0) and in-range ids; one launch of the wrapper a call; the
+    softmax weights (the row epilogue's, for grid, iterative and sort) are
+    exp(v - v_0) / sum of the raw scores within 1e-6, with the same ids;
+    no escalation on random keys."""
+    g = torch.Generator(device=cuda).manual_seed(valid + top_k)
+    qk = torch.randn((333, 64), generator=g, device=cuda).to(dtype)
+    mk = torch.randn((3000, 64), generator=g, device=cuda).to(dtype)
+    counted = _COUNTED[method]
+    esc = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kw = {} if method in ("iterative", "resident") else {"escalations": esc}
+    before = counted.launches
+    vals, idx = _large_k_rows(method, qk, mk, valid, top_k, True, **kw)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1 and int(esc) == 0
+    assert vals.shape == idx.shape == (333, top_k)
+    assert idx.dtype == torch.int32
+    pv, pi = topk_scores(mk, qk, top_k + 1, valid)
+    live = min(valid, top_k)
+    _assert_same_selection(vals[:, :live], idx[:, :live], pv[:, :live + 1],
+                           pi[:, :live + 1].to(torch.int32), 1e-4)
+    assert torch.all(vals[:, live:] == -1e30)
+    assert int(idx.min()) >= 0 and int(idx.max()) < max(valid, 1)
+    w, widx = _large_k_rows(method, qk, mk, valid, top_k)
+    assert torch.equal(widx, idx)
+    torch.testing.assert_close(w, softmax_weights(vals), rtol=0, atol=1e-6)
+    assert torch.all(w[:, live:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", LARGE_K_METHODS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid,top_k", [(1990, 257), (4990, 1000),
+                                         (1990, 1990), (4500, 2048)])
+def test_large_k_selections_ties(cuda, method, dtype, valid, top_k):
+    """Each of 40 keys 125 times over the bank (4,500: one key, every score
+    of a row tied): the threshold falls inside runs of exactly tied scores,
+    and the tied keys taken are the lowest ids, as the oracle's."""
+    rng = np.random.default_rng(2)
+    base = rng.standard_normal((1 if valid == 4500 else 40, 64))
+    mk = torch.from_numpy(np.tile(base, (5000 // len(base), 1)).astype(
+        np.float32)).to(cuda, dtype)
+    qk = torch.from_numpy(rng.standard_normal((70, 64)).astype(np.float32)
+                          ).to(cuda, dtype)
+    _, idx = _large_k_rows(method, qk, mk, valid, top_k)
+    np.testing.assert_array_equal(idx.cpu().numpy().T,
+                                  _oracle_topk(qk, mk, valid, top_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", LARGE_K_METHODS)
+@pytest.mark.parametrize("top_k", [257, 3000])
+def test_large_k_selections_empty_bank(cuda, method, top_k):
+    """No valid token: every raw score -1e30 with id 0, every weight
+    1 / top_k (the plain softmax of the -1e30 scores)."""
+    qk = torch.randn((50, 64), device=cuda).to(torch.bfloat16)
     mk = torch.randn((3000, 64), device=cuda).to(torch.bfloat16)
-    mv = torch.randn((1, 3000, 64), device=cuda).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="256"):
-        select_topk(mk, qk, 257, 3000, method=select)
-    if select in ("chunked", "resident"):
-        with pytest.raises(ValueError, match="256"):
-            fused_readout(mk, qk, mv, 257, 3000,
-                          KernelConfig(sel_method=select))
-    with pytest.raises(ValueError, match="256"):
-        fused_readout(mk, qk, mv, 257, 3000,
-                      KernelConfig(readout_method="chunked"))
+    vals, idx = _large_k_rows(method, qk, mk, 0, top_k, True)
+    w, _ = _large_k_rows(method, qk, mk, 0, top_k)
+    assert torch.all(vals == -1e30) and torch.all(idx == 0)
+    torch.testing.assert_close(w, torch.full_like(w, 1 / top_k), rtol=0,
+                               atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["sort", "grid", "chunked"])
+def test_large_k_escalations_are_the_radix_selects(cuda, method):
+    """Above 256 ``escalations`` counts what #1's counts (the queries whose
+    first bin held more than the radix cap): the same count as #1 on a
+    tight cluster of integer keys, and the same ids."""
+    rng = np.random.default_rng(512)
+    m = 20000
+    mk = np.tile(rng.integers(-2, 3, 64), (m, 1))
+    for _ in range(4):
+        mk[np.arange(m), rng.integers(0, 64, m)] += rng.integers(-1, 2, m)
+    qk = rng.integers(-2, 3, (300, 64))
+    qk, mk = (torch.from_numpy(x.astype(np.float32)).to(cuda, torch.bfloat16)
+              for x in (qk, mk))
+    want = torch.zeros(1, dtype=torch.int32, device=cuda)
+    _, ref_idx = topk_select(qk, mk, m, 512, escalations=want)
+    esc = torch.zeros(1, dtype=torch.int32, device=cuda)
+    _, idx = _large_k_rows(method, qk, mk, m, 512, escalations=esc)
+    torch.cuda.synchronize()
+    assert int(want) > 0 and int(esc) == int(want)
+    assert torch.equal(idx, ref_idx.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sel", ["tournament", "chunked", "resident"])
+@pytest.mark.parametrize("readout", ["grid", "chunked"])
+@pytest.mark.parametrize("top_k", [300, 2048])
+def test_fused_readout_large_k_kernel_configs(cuda, sel, readout, top_k):
+    """Every (selection, readout) pair of ``KernelConfig`` above 256
+    against the plain fused read, K = 2, valid below and above top_k; the
+    chosen wrappers launch once each a read."""
+    g = torch.Generator(device=cuda).manual_seed(top_k)
+    mk = torch.randn((5000, 64), generator=g, device=cuda).to(torch.bfloat16)
+    qk = torch.randn((200, 64), generator=g, device=cuda).to(torch.bfloat16)
+    mv = torch.randn((2, 5000, 64), generator=g, device=cuda).to(
+        torch.bfloat16)
+    cfg = KernelConfig(sel_method=sel, readout_method=readout)
+    counted = (COUNTED.get(sel, topk_select_resident),
+               {"grid": topk_readout, "chunked": topk_readout_chunked}[
+                   readout])
+    for valid in (250, 4000):
+        before = [c.launches for c in counted]
+        got = fused_readout(mk, qk, mv, top_k, valid, cfg)
+        assert [c.launches for c in counted] == [b + 1 for b in before]
+        _assert_readout_close(got, fused_readout_plain(mk, qk, mv, top_k,
+                                                       valid))
 
 
 # #1 above 256 where a query's first bin holds more than its cap of keys (the
@@ -1133,8 +1285,9 @@ WIDTH_SELECTORS = {
     "grid": (_grid_transposed, topk_select_grid),
     "iterative": (_rows_transposed(topk_select_iter), topk_select_iter),
     "sort": (_rows_transposed(topk_select_sort), topk_select_sort)}
-# #1 at top_k 50 and 512 (its radix select), the others at 50
-WIDTH_CASES = [(m, 50) for m in WIDTH_SELECTORS] + [("tournament", 512)]
+# each selection at top_k 50 and 512 (the radix select, through each
+# wrapper: its launches and pads)
+WIDTH_CASES = [(m, k) for m in WIDTH_SELECTORS for k in (50, 512)]
 
 
 @pytest.mark.cuda
