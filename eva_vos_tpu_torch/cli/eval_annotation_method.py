@@ -38,6 +38,7 @@ from ..interactions import (
     oracle_oracle, rand_type, rand_rand, eva_vos,
 )
 from ..utils.paths import DataPaths
+from ..utils.profiling import TRACE, device_trace
 from ..utils.seeding import seed_everything
 from ..utils.table import read_columns, write_columns
 
@@ -84,12 +85,18 @@ def build_parser():
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run here")
     p.add_argument("--timers", action="store_true",
-                   help="print a per-phase wall-clock report per video")
+                   help="print a per-phase wall-clock report per video, "
+                        "and the process's spans and counters so far")
     p.add_argument("--device", default="cuda")
     return p
 
 
 def build_models(args):
+    with TRACE.span("models.build"):
+        return _build_models(args)
+
+
+def _build_models(args):
     from ..utils import model_zoo
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -246,7 +253,6 @@ def main(argv=None):
         print(f"[resume] {len(done_videos)} videos already done")
 
     from ..interactions import eval as eval_mod
-    from ..utils.profiling import device_trace
 
     t0 = time.time()
     n_videos = 0
@@ -283,6 +289,8 @@ def main(argv=None):
                   f"({time.time() - t0:.1f}s)")
             if args.timers and eval_mod.LAST_SESSION is not None:
                 print(eval_mod.LAST_SESSION.timers.report())
+                print("process (every video so far)")
+                print(TRACE.report())
             if args.resume:  # incremental flush for restart safety
                 os.makedirs(out_dir, exist_ok=True)
                 write_columns(csv_path, results)

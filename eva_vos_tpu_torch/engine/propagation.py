@@ -42,6 +42,7 @@ from ..ops.memory_attention import memory_readout, resolve_strategy
 from ..ops.normalize import im_normalize
 from ..ops.padding import compute_pad, pad_hw, unpad_hw
 from ..parallel.sharded_attention import sharded_memory_readout
+from ..utils.profiling import TRACE
 
 
 class VideoFeatures(NamedTuple):
@@ -117,11 +118,14 @@ class InferenceEngine:
         """images [T, nh, nw, 3] (padded, normalised) -> VideoFeatures."""
         parts = []
         chunk = self.config.feature_chunk
-        for lo in range(0, images.shape[0], chunk):
-            f = self.stcn.encode_key(images[lo:lo + chunk])
-            skip8, skip4 = self.stcn.encode_skips(f.f8, f.f4)
-            parts.append((f.k16.flatten(1, 2), f.f16_thin, f.f16, skip8, skip4))
-        k16, f16_thin, f16, f8, f4 = (torch.cat(p) for p in zip(*parts))
+        with TRACE.span("engine.precompute"):
+            for lo in range(0, images.shape[0], chunk):
+                f = self.stcn.encode_key(images[lo:lo + chunk])
+                skip8, skip4 = self.stcn.encode_skips(f.f8, f.f4)
+                parts.append((f.k16.flatten(1, 2), f.f16_thin, f.f16, skip8,
+                              skip4))
+            k16, f16_thin, f16, f8, f4 = (torch.cat(p) for p in zip(*parts))
+        TRACE.count("frames_encoded", images.shape[0])
         return VideoFeatures(images=images, k16=k16, f16_thin=f16_thin,
                              f16=f16, f8=f8, f4=f4)
 
@@ -163,22 +167,26 @@ class InferenceEngine:
         qk = feats.k16[tis].reshape(b * hw, ck)
         mk = bank_k.reshape(mmax * hw, ck)
         mv = bank_v.reshape(k_obj, mmax * hw, cv)
-        if self._sharded:
-            top_k = min(self.config.top_k, self.mesh.size * mmax * hw)
-            readout = sharded_memory_readout(
-                mk, qk, mv, top_k, self.mesh, valid_tokens=front * hw,
-                kernel_cfg=self.config.kernels)
-        else:
-            readout = memory_readout(mk, qk, mv,
-                                     top_k=min(self.config.top_k, mmax * hw),
-                                     valid_tokens=front * hw,
-                                     strategy=self.config.readout_strategy,
-                                     kernel_cfg=self.config.kernels)
+        with TRACE.span("engine.read"):
+            if self._sharded:
+                top_k = min(self.config.top_k, self.mesh.size * mmax * hw)
+                readout = sharded_memory_readout(
+                    mk, qk, mv, top_k, self.mesh, valid_tokens=front * hw,
+                    kernel_cfg=self.config.kernels)
+            else:
+                readout = memory_readout(
+                    mk, qk, mv, top_k=min(self.config.top_k, mmax * hw),
+                    valid_tokens=front * hw,
+                    strategy=self.config.readout_strategy,
+                    kernel_cfg=self.config.kernels)
+        TRACE.count("reads")
+        TRACE.count("read_valid_tokens", front * hw)
         h16, w16 = feats.f16_thin.shape[1:3]
         readout = readout.reshape(k_obj, b, h16, w16, cv).transpose(0, 1)
-        return self.stcn.decode_with_readout(
-            readout, feats.f16_thin[tis], feats.f8[tis], feats.f4[tis],
-            skips_precomputed=True)
+        with TRACE.span("engine.decode"):
+            return self.stcn.decode_with_readout(
+                readout, feats.f16_thin[tis], feats.f8[tis], feats.f4[tis],
+                skips_precomputed=True)
 
     def _fuse_frame(self, feats, prob_prev, prob_curr, attn, tc, tr, ti):
         """FusionNet blend of the prior and current prediction of frame ti.
@@ -204,25 +212,29 @@ class InferenceEngine:
         h16, w16 = feats.f16_thin.shape[1:3]
         fused = []
         for j, ti in enumerate(tis):
-            attn = self.stcn.get_attention(
-                key_k16, pos_diff, neg_diff,
-                feats.k16[ti].reshape(h16, w16, -1))
-            fused.append(self._fuse_frame(feats, prob[:, ti], out[j], attn,
-                                          closest, idx, ti))
+            with TRACE.span("engine.fuse"):
+                attn = self.stcn.get_attention(
+                    key_k16, pos_diff, neg_diff,
+                    feats.k16[ti].reshape(h16, w16, -1))
+                fused.append(self._fuse_frame(feats, prob[:, ti], out[j],
+                                              attn, closest, idx, ti))
+        TRACE.count("frames_fused", len(tis))
         return torch.stack(fused)
 
     def _store(self, feats, state, front, ti, masks):
         """Admit frame ti (object masks [K, nh, nw]) into bank slot ``front``
         (on a sharded bank: on the rank that owns the slot, alone)."""
-        if self._sharded:
-            owned = state.bank_k.shape[0]
-            if front // owned != self.mesh.rank:
-                return
-            front -= self.mesh.rank * owned
-        state.bank_k[front] = feats.k16[ti]
-        value = self.stcn.encode_value(feats.images[ti], feats.f16[ti],
-                                       masks.to(state.bank_v.dtype))
-        state.bank_v[:, front] = value.flatten(1, 2)           # [K, hw, CV]
+        TRACE.count("memories_stored")
+        with TRACE.span("engine.store"):
+            if self._sharded:
+                owned = state.bank_k.shape[0]
+                if front // owned != self.mesh.rank:
+                    return
+                front -= self.mesh.rank * owned
+            state.bank_k[front] = feats.k16[ti]
+            value = self.stcn.encode_value(feats.images[ti], feats.f16[ti],
+                                           masks.to(state.bank_v.dtype))
+            state.bank_v[:, front] = value.flatten(1, 2)       # [K, hw, CV]
 
     def _do_pass(self, feats, state, ctx, forward: bool):
         """One directional pass from ``idx`` towards ``closest``.
@@ -244,15 +256,18 @@ class InferenceEngine:
         front = state.certain_count
         for steps in groups:
             tis = [idx + 1 + s if forward else idx - 1 - s for s in steps]
-            out = self._segment_frames(feats, state.bank_k, state.bank_v,
-                                       front, tis)
-            out = aggregate_wbg(out.transpose(0, 1).float(),
-                                keep_bg=True).transpose(0, 1)
-            if (steps[-1] + 1) % mem_freq == 0 and tis[-1] != end:
-                self._store(feats, state, front, tis[-1], out[-1, 1:])
-                front += 1
-            new = self._blend(feats, state.prob, out, tis, ctx)
-            state.prob[:, tis] = new.transpose(0, 1)
+            TRACE.count("frames_segmented", len(tis))
+            TRACE.count("steps_blocked" if len(tis) > 1 else "steps_single")
+            with TRACE.span("engine.step"):
+                out = self._segment_frames(feats, state.bank_k, state.bank_v,
+                                           front, tis)
+                out = aggregate_wbg(out.transpose(0, 1).float(),
+                                    keep_bg=True).transpose(0, 1)
+                if (steps[-1] + 1) % mem_freq == 0 and tis[-1] != end:
+                    self._store(feats, state, front, tis[-1], out[-1, 1:])
+                    front += 1
+                new = self._blend(feats, state.prob, out, tis, ctx)
+                state.prob[:, tis] = new.transpose(0, 1)
 
     @torch.no_grad()
     def interact(self, state: PropagationState, feats: VideoFeatures, mask,
@@ -271,35 +286,40 @@ class InferenceEngine:
                 f"interactions recorded, EngineConfig.max_interactions="
                 f"{self.config.max_interactions} - raise max_interactions "
                 f"when creating the engine")
-        if not donate:
-            state = state._replace(prob=state.prob.clone(),
-                                   bank_k=state.bank_k.clone(),
-                                   bank_v=state.bank_v.clone())
-        t = feats.k16.shape[0]
-        h16, w16 = feats.f16_thin.shape[1:3]
-        interacted = state.interacted.copy()
-        fwd_closest = min([j for j in range(idx + 1, t) if interacted[j]] + [t])
-        bwd_closest = max([j for j in range(idx) if interacted[j]] + [-1])
-        interacted[idx] = True
+        with TRACE.span("engine.interact"):
+            if not donate:
+                state = state._replace(prob=state.prob.clone(),
+                                       bank_k=state.bank_k.clone(),
+                                       bank_v=state.bank_v.clone())
+            t = feats.k16.shape[0]
+            h16, w16 = feats.f16_thin.shape[1:3]
+            interacted = state.interacted.copy()
+            fwd_closest = min([j for j in range(idx + 1, t) if interacted[j]]
+                              + [t])
+            bwd_closest = max([j for j in range(idx) if interacted[j]] + [-1])
+            interacted[idx] = True
 
-        mask = mask.to(device=state.prob.device, dtype=torch.float32)
-        # mask differences against the pre-update probability
-        # (inference_core.py:222-224)
-        diff = mask - state.prob[1:, idx]
-        pos_diff = diff.clamp(0.0, 1.0)
-        neg_diff = (-diff).clamp(0.0, 1.0)
-        state.prob[0, idx] = 1.0 - mask.amax(dim=0)
-        state.prob[1:, idx] = mask
+            mask = mask.to(device=state.prob.device, dtype=torch.float32)
+            # mask differences against the pre-update probability
+            # (inference_core.py:222-224)
+            diff = mask - state.prob[1:, idx]
+            pos_diff = diff.clamp(0.0, 1.0)
+            neg_diff = (-diff).clamp(0.0, 1.0)
+            state.prob[0, idx] = 1.0 - mask.amax(dim=0)
+            state.prob[1:, idx] = mask
 
-        # the certain memory of this interaction
-        self._store(feats, state, cc, idx, mask)
-        state = state._replace(certain_count=cc + 1, interacted=interacted)
+            # the certain memory of this interaction
+            self._store(feats, state, cc, idx, mask)
+            state = state._replace(certain_count=cc + 1,
+                                   interacted=interacted)
 
-        key_k16 = feats.k16[idx].reshape(h16, w16, -1)
-        for closest, forward in ((fwd_closest, True), (bwd_closest, False)):
-            self._do_pass(feats, state,
-                          (key_k16, pos_diff, neg_diff, closest, idx), forward)
-        return state
+            key_k16 = feats.k16[idx].reshape(h16, w16, -1)
+            for closest, forward in ((fwd_closest, True),
+                                     (bwd_closest, False)):
+                self._do_pass(feats, state,
+                              (key_k16, pos_diff, neg_diff, closest, idx),
+                              forward)
+            return state
 
     # ------------------------------------------------------------------
     # host-side helpers

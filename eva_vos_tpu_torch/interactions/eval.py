@@ -27,7 +27,7 @@ from ..engine.propagation import pad_mask, prepare_video
 from ..ops.metrics import compute_iou, get_j_and_f, quality_batch
 from ..ops.padding import unpad_hw
 from ..utils.costs import ANNOTATION_COSTS
-from ..utils.profiling import WallClock
+from ..utils.profiling import TRACE, WallClock
 
 EMPTY_GT_TOKEN = 20
 
@@ -162,8 +162,10 @@ def initialize(engine: InferenceEngine, sample: VideoSample,
     key = (id(engine), id(sample.images01), str(dtype))
     hit = _FEATURE_CACHE.get(key)
     if hit is not None and hit[0] is sample.images01:
+        TRACE.count("feature_cache_hits")
         feats, pad = hit[1], hit[2]
     else:
+        TRACE.count("feature_cache_misses")
         images, pad = prepare_video(sample.images01, dtype=dtype,
                                     device=engine.device)
         feats = engine.precompute_features(images)

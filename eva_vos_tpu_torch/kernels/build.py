@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils.profiling import TRACE
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernel_build"
 KEY_WIDTHS = (16, 32, 64, 128, 256)  # topk_common.cuh's padded widths CKP
@@ -78,7 +80,21 @@ def build_all(names=LIBRARIES) -> dict:
     """Build every missing library, one ``nvcc`` per library, all at once.
 
     Returns {library: seconds its build took (0.0 when it was already
-    built)}.
+    built)}.  A call that runs ``nvcc`` is the span ``kernels.build`` of
+    ``utils.profiling.TRACE`` and counts ``kernel_builds``, one a library.
+    """
+    seconds = {name: 0.0 for name in names}
+    missing = [name for name in names if not library_path(name).exists()]
+    if missing:
+        with TRACE.span("kernels.build"):
+            seconds.update(_build(missing))
+        TRACE.count("kernel_builds", len(missing))
+    return seconds
+
+
+def _build(names) -> dict:
+    """Compile ``names`` side by side -> {library: seconds}.
+
     Each compiler writes its report to its own log file, so that none waits
     on a full pipe while another is read.
     """
@@ -86,8 +102,6 @@ def build_all(names=LIBRARIES) -> dict:
     procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
-            continue
         # compile to a private name, then rename: concurrent builds never
         # load a half-written library
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -97,7 +111,7 @@ def build_all(names=LIBRARIES) -> dict:
         with open(log, "w") as f:
             proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
         procs[name] = (proc, tmp, log, out, time.perf_counter())
-    seconds = {name: 0.0 for name in names}
+    seconds = {}
     pending = dict(procs)
     while pending:
         for name, (proc, *_, t0) in list(pending.items()):
