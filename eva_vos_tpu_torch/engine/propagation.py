@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels.config import KernelConfig
+from ..models.fused_trunk import FusedTrunk
 from ..ops.aggregate import aggregate_wbg
 from ..ops.memory_attention import memory_readout, resolve_strategy
 from ..ops.normalize import im_normalize
@@ -109,6 +110,7 @@ class InferenceEngine:
                                               self.device),
             kernels=kernels)
         self._sharded = self.config.readout_strategy == "sharded"
+        self._trunks = (None, None)   # FusedTrunks of the key, value encoders
 
     # ------------------------------------------------------------------
     # feature precompute
@@ -119,8 +121,10 @@ class InferenceEngine:
         parts = []
         chunk = self.config.feature_chunk
         with TRACE.span("engine.precompute"):
+            self._fold_trunks()
             for lo in range(0, images.shape[0], chunk):
-                f = self.stcn.encode_key(images[lo:lo + chunk])
+                f = self.stcn.encode_key(images[lo:lo + chunk],
+                                         self._trunks[0])
                 skip8, skip4 = self.stcn.encode_skips(f.f8, f.f4)
                 parts.append((f.k16.flatten(1, 2), f.f16_thin, f.f16, skip8,
                               skip4))
@@ -128,6 +132,21 @@ class InferenceEngine:
         TRACE.count("frames_encoded", images.shape[0])
         return VideoFeatures(images=images, k16=k16, f16_thin=f16_thin,
                              f16=f16, f8=f8, f4=f4)
+
+    def _fold_trunks(self):
+        """Fold the key and value encoders' trunks (``FusedTrunk``) again
+        when the network no longer holds the tensors of the last fold, or
+        has written them (``load_state_dict`` copies into them); run the
+        trunks themselves while the network trains, which needs
+        BatchNorm's batch statistics.  Once an open, not once a call."""
+        encoders = (self.stcn.key_encoder, self.stcn.value_encoder)
+        if any(e.training for e in encoders):
+            self._trunks = (None, None)
+        elif not all(f is not None and f.current(e)
+                     for f, e in zip(self._trunks, encoders)):
+            self._trunks = tuple(FusedTrunk(e) for e in encoders)
+            TRACE.count("trunk_folds")
+            TRACE.count("bn_folded", sum(f.bn_folded for f in self._trunks))
 
     # ------------------------------------------------------------------
     # state
@@ -233,7 +252,8 @@ class InferenceEngine:
                 front -= self.mesh.rank * owned
             state.bank_k[front] = feats.k16[ti]
             value = self.stcn.encode_value(feats.images[ti], feats.f16[ti],
-                                           masks.to(state.bank_v.dtype))
+                                           masks.to(state.bank_v.dtype),
+                                           self._trunks[1])
             state.bank_v[:, front] = value.flatten(1, 2)       # [K, hw, CV]
 
     def _do_pass(self, feats, state, ctx, forward: bool):

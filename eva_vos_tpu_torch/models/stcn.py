@@ -56,8 +56,10 @@ class KeyEncoder(ResNetTrunk):
         super().__init__(arch, num_stages=3, conv_bias=False, in_chans=3,
                          stage_names=("res2", "layer2", "layer3"))
 
-    def forward(self, frame):
-        f4, f8, f16 = super().forward(frame)
+    def forward(self, frame, trunk=None):
+        """``trunk``: a stand-in for this module's own trunk (the engine's
+        ``FusedTrunk``)."""
+        f4, f8, f16 = (super().forward if trunk is None else trunk)(frame)
         return f16, f8, f4
 
 
@@ -70,8 +72,9 @@ class ValueEncoder(ResNetTrunk):
         self.fuser = FeatureFusionBlock(feature_dims(arch, 3)[-1] + key_f16_dim,
                                         value_dim)
 
-    def forward(self, x, key_f16):
-        return self.fuser(super().forward(x)[-1], key_f16)
+    def forward(self, x, key_f16, trunk=None):
+        feats = (super().forward if trunk is None else trunk)(x)
+        return self.fuser(feats[-1], key_f16)
 
 
 class Decoder(nn.Module):
@@ -117,16 +120,20 @@ class PropagationNetwork(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.key_comp.weight.dtype
 
-    def encode_key(self, frame) -> STCNFeatures:
-        """frame [..., H, W, 3] -> per-frame features (``prop_net.py:172-177``)."""
+    def encode_key(self, frame, trunk=None) -> STCNFeatures:
+        """frame [..., H, W, 3] -> per-frame features (``prop_net.py:172-177``).
+
+        ``trunk``, here and in ``encode_value``: what runs in place of the
+        encoder's ResNet trunk (the engine's ``FusedTrunk``); None: its own.
+        """
         lead = frame.shape[:-3]
-        f16, f8, f4 = self.key_encoder(to_nchw(frame))
+        f16, f8, f4 = self.key_encoder(to_nchw(frame), trunk)
         return STCNFeatures(k16=to_nhwc(self.key_proj(f16), lead),
                             f16_thin=to_nhwc(self.key_comp(f16), lead),
                             f16=to_nhwc(f16, lead), f8=to_nhwc(f8, lead),
                             f4=to_nhwc(f4, lead))
 
-    def encode_value(self, frame, kf16, masks):
+    def encode_value(self, frame, kf16, masks, trunk=None):
         """Memory value of one frame for K objects.
 
         frame [H, W, 3], kf16 [H/16, W/16, C16], masks [K, H, W] ->
@@ -140,7 +147,7 @@ class PropagationNetwork(nn.Module):
         x = torch.cat([frame.expand(k, *frame.shape), masks[..., None],
                        others[..., None]], dim=-1)
         key_f16 = to_nchw(kf16.expand(k, *kf16.shape))
-        return to_nhwc(self.value_encoder(to_nchw(x), key_f16), (k,))
+        return to_nhwc(self.value_encoder(to_nchw(x), key_f16, trunk), (k,))
 
     def decode_with_readout(self, readout_value, qv16, qf8, qf4,
                             skips_precomputed: bool = False,

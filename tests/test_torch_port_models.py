@@ -25,6 +25,7 @@ from eva_vos_tpu.models import PropagationNetwork as JxSTCN
 from eva_vos_tpu.models.resnet import ResNetTrunk as JxTrunk
 from eva_vos_tpu.utils.weight_convert import invert_fusion, invert_stcn
 from eva_vos_tpu_torch.models import FusionNet, PropagationNetwork, ResNetTrunk
+from eva_vos_tpu_torch.models.fused_trunk import FusedTrunk
 from eva_vos_tpu_torch.utils import weight_convert as wc
 
 H, W, K = 48, 64, 2
@@ -205,4 +206,36 @@ def test_resnet50_trunk(rng):
         got = ours.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert len(got) == 3
     for g, r in zip(got, ref):
+        _close(g.permute(0, 2, 3, 1), r)
+
+
+@pytest.mark.parametrize("arch, num_stages, conv_bias, in_chans", [
+    ("resnet50", 3, False, 3),    # the key encoder's trunk
+    ("resnet18", 3, True, 5),     # the value encoder's trunk
+    ("resnet50", 2, True, 5),     # biased bottleneck downsamples: their
+    #                               bias joins the block's last epilogue
+], ids=["key_resnet50", "value_resnet18", "biased_downsample"])
+def test_fused_trunk(rng, arch, num_stages, conv_bias, in_chans):
+    """The engine's folded trunk against the trunk it was folded from and
+    the JAX trunk, with non-trivial BatchNorm statistics and biases."""
+    jx = JxTrunk(arch=arch, num_stages=num_stages, conv_bias=conv_bias)
+    x = rng.standard_normal((2, 32, 48, in_chans)).astype(np.float32)
+    variables = _init(jx, rng, jnp.asarray(x))
+    walker = wc._Walker(variables)
+    wc._trunk(walker, (), "m", arch, num_stages, conv_bias)
+    ours = ResNetTrunk(arch, num_stages=num_stages, conv_bias=conv_bias,
+                       in_chans=in_chans)
+    ours.load_state_dict({k[2:]: v for k, v in walker.sd.items()}, strict=True)
+    ours.eval()
+    fused = FusedTrunk(ours)
+    assert fused.bn_folded == sum(
+        isinstance(m, torch.nn.BatchNorm2d) for m in ours.modules())
+    ref = jx.apply(variables, jnp.asarray(x))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        unfused = ours(xt)
+    got = fused(xt)
+    assert len(got) == num_stages
+    for g, u, r in zip(got, unfused, ref):
+        _close(g, u.numpy())
         _close(g.permute(0, 2, 3, 1), r)

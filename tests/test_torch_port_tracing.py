@@ -71,6 +71,9 @@ def test_engine_spans_nest_and_count_the_schedule(engine, sample, monkeypatch,
                                                   tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
+    # a weight written since the engine's last fold: this session folds the
+    # encoders' trunks once, whichever test ran first
+    engine.stcn.key_encoder.bn1.running_var.mul_(1.0)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _session(engine, sample, monkeypatch)
     path = tmp_path / "trace.json"
@@ -114,7 +117,8 @@ def test_engine_spans_nest_and_count_the_schedule(engine, sample, monkeypatch,
         "reads": steps,
         "read_valid_tokens": sum(m * HW for p in plans for _, m in p.reads),
         "memories_stored": sum(p.stores for p in plans),
-        "frames_fused": sum(p.fused for p in plans)}
+        "frames_fused": sum(p.fused for p in plans),
+        "trunk_folds": 1, "bn_folded": 30}
 
 
 def test_feature_cache_counts_hits_and_misses(engine, sample, monkeypatch):
